@@ -13,18 +13,33 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    3.35 TB/s, or operations over the f32 peak, whichever is larger) and,
    where one PyTorch call computes the same function, that call's time.
    ``ssu_dedupe_evict`` is timed without overflow (the path's steady
-   state, the one in the kernels line) and with it.
+   state, the one in the kernels line) and with it.  ``row_hash`` is held
+   bit for bit against its plain version on that table (f32 and a bf16
+   copy, each with its f32 accumulator), a ragged width (d = 9), no rows
+   and zero-byte rows; the number of differing words must be 0.
 3. The main path: the port's ``Emulator`` trains the unscaled Criteo-Kaggle
    DLRM (26 tables, 33,762,577 rows, d = 16) under 2 injected failures in
    modes ``full``, ``cpr-mfu`` and ``cpr-ssu`` (kernel tracker backend),
-   35 steps each at batch 512, then evaluates.  Launch counts are reset
-   just before each mode and read just after.
+   at batch 512, then evaluates: first on the flat store (STEPS_FLAT
+   steps), then on the sharded writer fleet (STEPS_FLEET steps; 8 shards,
+   ``transport="inproc"``, delta saves with the ``row_hash`` kernel
+   ledger).  Launch counts are reset just before each run and read just
+   after; the priority modes must restore from the fleet.
 4. The output checked against a reference on a small input: the scaled
    config trained on the card and on the CPU (the CPU path is held against
    the JAX reference by the tests) from the same parameters gives the same
-   PLS, overhead charges and bytes written, and an AUC within 5e-3.
-   Phase 2 checks the kernels alone; this checks what the whole path on
-   the card (trackers, saves, restores, evaluation) hands back.
+   PLS, overhead charges, bytes written and delta counts, and an AUC
+   within 5e-3 — on the flat store, and through the fleet over the pipe
+   and the socket transports (the card hashes with the kernel, the CPU
+   with the host ledger); the fleet's writer alone on the card and on the
+   CPU gives the same images, in-place restores, bytes and delta counts
+   after a ``save_full`` and a delta ``save_rows``.  A ``cpr-mfu`` run
+   with a disk directory through ``pipe`` then reloads with
+   ``load_latest_auto`` to its writers' fenced image byte for byte, and
+   every pipe writer process reports from inside that it never created a
+   CUDA context.  Phase 2 checks the kernels
+   alone; this checks what the whole path on the card (trackers, saves,
+   the fleet, restores, evaluation) hands back.
 
 The last two lines are ``{"kernels": [...]}`` and ``{"ok": true, ...}``.
 """
@@ -32,6 +47,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -44,7 +61,13 @@ import torch
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 N_BIG, D, B = 10_131_227, 16, 512
-STEPS = 35
+STEPS_FLAT = 35
+STEPS_FLEET = 35
+N_RAGGED = 1_000_003                  # rows of the d = 9 row_hash case
+FLEET = {"sharded_save": True, "delta_saves": True, "hash_backend": "kernel",
+         "transport": "inproc"}
+SCRATCH = Path(__file__).resolve().parent / "build" / "chip_smoke"
+PROBE_ENV = "CHIP_SMOKE_WRITER_PROBE_DIR"
 
 
 def fail(msg: str) -> None:
@@ -236,10 +259,59 @@ def phase_kernels(dev, eb, ts, sd, ref):
     return rows
 
 
+def phase_row_hash(dev, rh, ref):
+    """``row_hash`` vs its plain version, bit for bit, at the path's
+    shapes; timed on the largest table with its f32 accumulator."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    table = torch.rand((N_BIG, D), generator=gen, device=dev) - 0.5
+    acc = torch.rand(N_BIG, generator=gen, device=dev)
+    cases = {
+        "largest table f32": (table, acc),
+        "largest table bf16": (table.to(torch.bfloat16), acc),
+        "ragged d=9 f32": (torch.rand((N_RAGGED, 9), generator=gen,
+                                      device=dev), acc[:N_RAGGED]),
+        "no rows": (table[:0], acc[:0]),
+        "zero-byte rows": (table[:1000, :0], acc[:1000, None][:, :0]),
+    }
+    worst = 0
+    for name, (values, accs) in cases.items():
+        got = rh.row_hash(values, accs)
+        want = ref.row_hash(values, accs)
+        if got.shape != want.shape or got.dtype != torch.int64:
+            fail(f"row_hash {name}: shape/dtype differ from the plain version")
+        differing = int((got != want).sum())
+        if differing:
+            # |a - b| of the uint64 bits, exact in Python integers
+            a = got.cpu().numpy().view(np.uint64).astype(object)
+            b = want.cpu().numpy().view(np.uint64).astype(object)
+            worst = max(worst, max(abs(int(x) - int(y))
+                                   for x, y in zip(a, b)))
+        print(f"row_hash {name}: rows={values.shape[0]} "
+              f"row_bytes={rh.row_bytes(values)}+{rh.row_bytes(accs)} "
+              f"differing_words={differing}")
+        if differing:
+            fail("row_hash disagrees with its plain version")
+    del cases
+    row_bytes = rh.row_bytes(table) + rh.row_bytes(acc)
+    t_b, by = bound(N_BIG * (row_bytes + 8))
+    row = dict(max_abs_err=worst,
+               ms=time_ms(lambda: rh.row_hash(table, acc)),
+               plain_ms=time_ms(lambda: ref.row_hash(table, acc)),
+               bound_ms=t_b, bound_by=by, library_ms=None)
+    bf = table.to(torch.bfloat16)
+    bf_ms = time_ms(lambda: rh.row_hash(bf, acc))
+    t_bf, _ = bound(N_BIG * (rh.row_bytes(bf) + 4 + 8))
+    print(f"row_hash: ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+          f"bound_ms={t_b:.5f} ({by}); bf16 copy ms={bf_ms:.4f} "
+          f"bound_ms={t_bf:.5f}")
+    return row
+
+
 def phase_main_path(dev, kernels, cfg, num_samples=40_000):
-    """Full-width Criteo-Kaggle emulation in three modes."""
+    """Full-width Criteo-Kaggle emulation in three modes, on the flat
+    store and then on the sharded writer fleet."""
     from repro_torch.core import (CPRManager, Emulator, FailureInjector,
-                                  SystemParams)
+                                  ShardedCheckpointWriter, SystemParams)
     from repro_torch.data.synthetic import ClickLogDataset
     t0 = time.perf_counter()
     ds = ClickLogDataset(cfg.table_sizes, num_samples=num_samples, seed=3)
@@ -251,70 +323,188 @@ def phase_main_path(dev, kernels, cfg, num_samples=40_000):
               "cpr-ssu": {"embedding_bag", "embedding_bag_backward",
                           "ssu_dedupe_evict"}}
     totals = {name: 0 for name in kernels.LAUNCHES}
-    for mode, must in drives.items():
-        p = SystemParams()
-        mgr = CPRManager(mode, p, cfg.table_sizes, target_pls=0.1,
-                         tracker_backend="kernel", device=dev)
-        inj = FailureInjector(2, 0.25, p.N_emb, p.T_total, seed=11)
-        emu = Emulator(cfg, ds, mgr, inj, batch_size=B, device=dev)
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        res = emu.run(max_steps=STEPS)
-        wall = time.perf_counter() - t0
-        counts = dict(kernels.LAUNCHES)
-        for name, n in counts.items():
-            totals[name] += n
-        steady = statistics.median(emu.step_seconds[5:]) * 1e3
-        print(res.summary())
-        print(f"  {mode}: steps={res.n_steps} steady_ms_per_step={steady:.3f} "
-              f"wall_s={wall:.1f} final_loss={res.final_loss:.5f} "
-              f"bytes_written={res.report['bytes_written']} "
-              f"save_blocked_s={res.report['overheads']['save_blocked_s']:.2f}"
-              f" launches={json.dumps(counts)}")
-        missing = [n for n in must if counts[n] == 0]
-        if missing:
-            fail(f"{mode}: kernels {missing} were never launched")
-        if not math.isfinite(res.final_loss) or not math.isfinite(res.auc):
-            fail(f"{mode}: loss or AUC is not finite")
-        if mode != "full":
-            restores = [h for h in mgr.history if h["event"] == "failure"]
-            if mgr.effective_mode != mode or not restores:
-                fail(f"{mode}: no partial-recovery restore happened")
-        del emu, mgr
-        torch.cuda.empty_cache()
+    for store, fleet, steps in (("flat", {}, STEPS_FLAT),
+                                ("fleet", FLEET, STEPS_FLEET)):
+        for mode, must in drives.items():
+            must = must | ({"row_hash"} if fleet else set())
+            p = SystemParams()
+            mgr = CPRManager(mode, p, cfg.table_sizes, target_pls=0.1,
+                             tracker_backend="kernel", device=dev, **fleet)
+            inj = FailureInjector(2, 0.25, p.N_emb, p.T_total, seed=11)
+            emu = Emulator(cfg, ds, mgr, inj, batch_size=B, device=dev)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            res = emu.run(max_steps=steps)
+            wall = time.perf_counter() - t0
+            counts = dict(kernels.LAUNCHES)
+            for name, n in counts.items():
+                totals[name] += n
+            rep = res.report
+            steady = statistics.median(emu.step_seconds[5:]) * 1e3
+            print(f"[{store}] {res.summary()}")
+            print(f"  {store} {mode}: steps={res.n_steps} "
+                  f"steady_ms_per_step={steady:.3f} wall_s={wall:.1f} "
+                  f"final_loss={res.final_loss:.5f} "
+                  f"bytes_written={rep['bytes_written']} "
+                  f"save_blocked_s={rep['overheads']['save_blocked_s']:.3f} "
+                  f"delta_rows_skipped={rep.get('delta_rows_skipped')} "
+                  f"delta_bytes_skipped={rep.get('delta_bytes_skipped')} "
+                  f"launches={json.dumps(counts)}")
+            missing = [n for n in must if counts[n] == 0]
+            if missing:
+                fail(f"{store} {mode}: kernels {missing} were never launched")
+            if not math.isfinite(res.final_loss) or not math.isfinite(res.auc):
+                fail(f"{store} {mode}: loss or AUC is not finite")
+            if fleet and not (rep["sharded_save"] and
+                              isinstance(mgr.store, ShardedCheckpointWriter)
+                              and rep["hash_backend"] == "kernel"):
+                fail(f"fleet {mode}: the run did not go through the fleet")
+            if mode != "full":
+                restores = [h for h in mgr.history if h["event"] == "failure"]
+                if mgr.effective_mode != mode or not restores:
+                    fail(f"{store} {mode}: no partial-recovery restore "
+                         f"happened")
+            del emu, mgr
+            torch.cuda.empty_cache()
     return totals
 
 
+def _pipe_writer_probe(*args):
+    """Pipe writer entry point for this run: the transport's own, then a
+    report, from inside the writer process, of whether it ever created a
+    CUDA context."""
+    from repro_torch.core import transport
+    try:
+        transport._pipe_worker_main(*args)
+    finally:
+        probe = Path(os.environ[PROBE_ENV]) / f"writer-{os.getpid()}.txt"
+        probe.write_text(str(torch.cuda.is_initialized()))
+
+
 def phase_agreement(dev):
-    """The scaled config on the card vs on the CPU, same parameters."""
+    """The scaled config on the card vs on the CPU, same parameters, on the
+    flat store and through the fleet over pipe and socket; then a disk
+    round trip of the fleet and the writer processes' CUDA state."""
     from repro_torch.configs.dlrm import DLRM_KAGGLE, scaled
     from repro_torch.core import (CPRManager, Emulator, FailureInjector,
-                                  SystemParams)
+                                  SystemParams, load_latest_auto, transport)
     from repro_torch.data.synthetic import ClickLogDataset
     from repro_torch.models.dlrm import init_dlrm, params_to_numpy
     cfg = scaled(DLRM_KAGGLE, 2000)
     ds = ClickLogDataset(cfg.table_sizes, num_samples=8000, seed=3)
     init = params_to_numpy(init_dlrm(
         cfg, torch.Generator().manual_seed(0), "cpu"))
-    out = {}
-    for device in (dev, "cpu"):
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    (SCRATCH / "probe").mkdir(parents=True)
+    os.environ[PROBE_ENV] = str(SCRATCH / "probe")
+    transport._pipe_worker_main = _pipe_writer_probe
+
+    def run(device, **kw):
         p = SystemParams()
         mgr = CPRManager("cpr-mfu", p, cfg.table_sizes, target_pls=0.1,
-                         tracker_backend="kernel", device=device)
+                         tracker_backend="kernel", device=device, **kw)
         inj = FailureInjector(2, 0.25, p.N_emb, p.T_total, seed=11)
-        out[str(device)] = Emulator(cfg, ds, mgr, inj, batch_size=256,
-                                    device=device, init_params=init).run()
-    card, cpu = out[str(dev)], out["cpu"]
-    same = all(card.report["overheads"][k] == cpu.report["overheads"][k]
-               for k in ("save", "load", "lost", "resched"))
-    same &= card.report["measured_pls"] == cpu.report["measured_pls"]
-    same &= card.report["bytes_written"] == cpu.report["bytes_written"]
-    gap = abs(card.auc - cpu.auc)
-    print(f"agreement (scaled, cpr-mfu): card auc={card.auc:.6f} "
-          f"cpu auc={cpu.auc:.6f} gap={gap:.2e} charges/pls/bytes "
+        res = Emulator(cfg, ds, mgr, inj, batch_size=256, device=device,
+                       init_params=init).run()
+        return res, mgr
+
+    fleet = {"sharded_save": True, "delta_saves": True}
+    for name, kw in (("flat", {}),
+                     ("fleet pipe", dict(fleet, transport="pipe")),
+                     ("fleet socket", dict(fleet, transport="socket"))):
+        t0 = time.perf_counter()
+        card, _ = run(dev, **kw, **({"hash_backend": "kernel"} if kw else {}))
+        cpu, _ = run("cpu", **kw)            # host ledger on the CPU
+        a, b = card.report, cpu.report
+        same = all(a["overheads"][k] == b["overheads"][k]
+                   for k in ("save", "load", "lost", "resched"))
+        for k in ("measured_pls", "bytes_written", "delta_rows_skipped",
+                  "delta_bytes_skipped", "dropped_bytes"):
+            same &= a.get(k) == b.get(k)
+        gap = abs(card.auc - cpu.auc)
+        print(f"agreement (scaled, cpr-mfu, {name}): card auc={card.auc:.6f} "
+              f"cpu auc={cpu.auc:.6f} gap={gap:.2e} "
+              f"bytes_written={a['bytes_written']} "
+              f"delta_rows_skipped={a.get('delta_rows_skipped')} "
+              f"charges/pls/bytes/deltas identical={same} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if not same or gap > 5e-3:
+            fail(f"{name}: the card's run disagrees with the CPU path")
+
+    # the fleet's writer on the card (pinned save_full snapshots, device
+    # delta skip, in-place restore) against the same writer on the CPU
+    from repro_torch.core import EmbShardSpec, ShardedCheckpointWriter
+    spec = EmbShardSpec(cfg.table_sizes, 8)
+    rng = np.random.default_rng(7)
+    tabs = [np.asarray(t) for t in init["tables"]]
+    accs = [rng.random(len(t)).astype(np.float32) for t in tabs]
+    views = {}
+    for device, hb in ((dev, "kernel"), ("cpu", "host")):
+        t = [torch.tensor(x, device=device) for x in tabs]
+        a = [torch.tensor(x, device=device) for x in accs]
+        w = ShardedCheckpointWriter(t, a, spec, hash_backend=hb)
+        w.save_full([x + 1 for x in t], [x + 1 for x in a], step=1)
+        big = max(range(len(t)), key=lambda i: len(t[i]))
+        rows = torch.arange(0, len(t[big]), 3, device=device)
+        vals = t[big][rows] + 1                     # equal to the full: skip
+        vals[::2] += 1                              # half of them changed
+        w.save_rows(big, rows, vals, a[big][rows] + 1, step=2)
+        w.fence()
+        w.restore_shards(t, a, [1, 5])
+        views[str(device)] = ([x.cpu().numpy() for x in t + a],
+                              w.restore_all()[:2], w.bytes_written,
+                              w.delta_rows_skipped, w.delta_bytes_skipped)
+        w.close()
+    card, cpu = views[str(dev)], views["cpu"]
+    same = (card[2:] == cpu[2:] and
+            all(x.tobytes() == y.tobytes() for x, y in zip(card[0], cpu[0]))
+            and all(x.tobytes() == y.tobytes() for x, y in
+                    zip(card[1][0] + card[1][1], cpu[1][0] + cpu[1][1])))
+    print(f"fleet writer (scaled, inproc): card vs CPU images, restores, "
+          f"bytes_written={card[2]} delta_rows_skipped={card[3]} "
           f"identical={same}")
-    if not same or gap > 5e-3:
-        fail("the card's run disagrees with the CPU path")
+    if not same:
+        fail("the fleet's writer on the card disagrees with the CPU's")
+
+    # a disk directory through pipe: the reload equals the writers' image
+    # at their final fence, byte for byte
+    root = str(SCRATCH / "ckpt")
+    p = SystemParams()
+    mgr = CPRManager("cpr-mfu", p, cfg.table_sizes, target_pls=0.1,
+                     tracker_backend="kernel", device=dev, directory=root,
+                     transport="pipe", hash_backend="kernel", **fleet)
+    fenced = {}
+    close = mgr.close
+
+    def close_keeping_the_fenced_image():
+        mgr.fence()
+        fenced["image"] = mgr.store.restore_all()
+        close()
+
+    mgr.close = close_keeping_the_fenced_image
+    Emulator(cfg, ds, mgr, FailureInjector(2, 0.25, p.N_emb, p.T_total,
+                                           seed=11),
+             batch_size=256, device=dev, init_params=init).run()
+    base_t = [np.asarray(t) for t in init["tables"]]
+    base_a = [np.zeros(len(t), np.float32) for t in base_t]
+    got_t, got_a, _ = load_latest_auto(root, base_t, base_a,
+                                       mgr.spec).restore_all()
+    want_t, want_a, _ = fenced["image"]
+    same = all(x.tobytes() == y.tobytes() for x, y in
+               zip(got_t + got_a, want_t + want_a))
+    print(f"disk round trip (scaled, cpr-mfu, pipe, {mgr.store.cycle} "
+          f"stamped cycles): reload equals the fenced image byte for "
+          f"byte={same}")
+    if not same:
+        fail("load_latest_auto disagrees with the writers' fenced image")
+    probes = sorted((SCRATCH / "probe").glob("writer-*.txt"))
+    states = [f.read_text() for f in probes]
+    print(f"pipe writer processes: {len(states)} reported; CUDA context "
+          f"created in {states.count('True')}")
+    if len(states) < 2 * p.N_emb or any(x != "False" for x in states):
+        fail("a pipe writer process created a CUDA context (or did not "
+             "report)")
+    shutil.rmtree(SCRATCH, ignore_errors=True)
 
 
 def main() -> None:
@@ -325,6 +515,7 @@ def main() -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels import embedding_bag as eb
     from repro_torch.kernels import ref
+    from repro_torch.kernels import row_hash as rh
     from repro_torch.kernels import ssu_dedupe as sd
     from repro_torch.kernels import tracker_select as ts
 
@@ -346,6 +537,7 @@ def main() -> None:
                 print(f"  {log.stem}: {line.strip()}")
 
     rows = phase_kernels(dev, eb, ts, sd, ref)
+    rows["row_hash"] = phase_row_hash(dev, rh, ref)
     from repro_torch.configs.dlrm import DLRM_KAGGLE
     launches = phase_main_path(dev, kernels, DLRM_KAGGLE)
     phase_agreement(dev)
@@ -353,11 +545,13 @@ def main() -> None:
     sources = {"embedding_bag": "embedding_bag.cu",
                "embedding_bag_backward": "embedding_bag.cu",
                "tracker_select": "tracker_select.cu",
-               "ssu_dedupe_evict": "ssu_dedupe.cu"}
+               "ssu_dedupe_evict": "ssu_dedupe.cu",
+               "row_hash": "row_hash.cu"}
     replaces = {"embedding_bag": "src/repro/kernels/embedding_bag.py:44",
                 "embedding_bag_backward": "src/repro/models/dlrm.py:82",
                 "tracker_select": "src/repro/kernels/tracker_select.py:112",
-                "ssu_dedupe_evict": "src/repro/kernels/ssu_dedupe.py:59"}
+                "ssu_dedupe_evict": "src/repro/kernels/ssu_dedupe.py:59",
+                "row_hash": "src/repro/kernels/row_hash.py:71"}
     line = [{"name": name, "route": "cuda",
              "source": f"src/repro_torch/csrc/{sources[name]}",
              "replaces": replaces[name], "launches": launches[name],

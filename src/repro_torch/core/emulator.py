@@ -25,9 +25,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import trackers as trk
-from repro_torch.core.checkpoint import CheckpointStore
 from repro_torch.core.failure import FailureInjector
 from repro_torch.core.manager import CPRManager
+from repro_torch.core.sharded_checkpoint import load_latest_auto
 from repro_torch.metrics.classification import log_loss, roc_auc
 from repro_torch.models import dlrm as D
 from repro_torch.optim.optimizers import apply_updates, get_optimizer
@@ -132,9 +132,11 @@ class Emulator:
         step_fn, opt = self._build_step()
         ostate = opt.init(params)
         if resume_from:
-            # disk-mode full recovery from the flat store's last consistent
-            # cycle: embedding shards + optimizer rows + the trainer replica
-            loaded = CheckpointStore.load_latest(
+            # disk-mode full recovery: embedding shards + optimizer rows +
+            # the trainer replica come back from the last consistent cycle,
+            # whichever store layout (flat or per-shard fleet) wrote it;
+            # load_latest_auto resolves the run-versioned CURRENT pointer
+            loaded = load_latest_auto(
                 resume_from, params["tables"], ostate["acc"]["tables"],
                 mgr.spec, trainer_state=_trainer(params))
             r_t, r_a, trainer = loaded.restore_all()

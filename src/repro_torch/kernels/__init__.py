@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 LAUNCHES = {"embedding_bag": 0, "embedding_bag_backward": 0,
-            "tracker_select": 0, "ssu_dedupe_evict": 0}
+            "tracker_select": 0, "ssu_dedupe_evict": 0, "row_hash": 0}
 
 
 def reset_launches() -> None:

@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.kernels import embedding_bag as _eb
 from repro_torch.kernels import on_card, ref
+from repro_torch.kernels import row_hash as _rh
 from repro_torch.kernels import ssu_dedupe as _sd
 from repro_torch.kernels import tracker_select as _ts
 
@@ -41,3 +42,12 @@ def ssu_dedupe_evict(buf, cand, scores):
     if on_card(buf, cand, scores):
         return _sd.ssu_dedupe_evict(buf, cand, scores)
     return ref.ssu_dedupe_evict(buf, cand, scores)
+
+
+def row_hash(values, accs):
+    """Per-row FNV-1a of (value row, accumulator row) bytes -> (n,) int64
+    holding the uint64 bits.  The kernel reads rows in place, so CUDA
+    inputs must be contiguous."""
+    if on_card(values, accs):
+        return _rh.row_hash(values, accs)
+    return ref.row_hash(values, accs)

@@ -1,8 +1,8 @@
 """Plain PyTorch versions of the port's kernels (the allclose targets).
 
 They mirror ``repro.kernels.ref`` (``embedding_bag``, ``tracker_select``,
-``ssu_dedupe_evict``) and add the embedding-bag backward, which the
-reference leaves to XLA.  The CPU path runs them; on the card they are
+``ssu_dedupe_evict``, ``row_hash``) and add the embedding-bag backward,
+which the reference leaves to XLA.  The CPU path runs them; on the card they are
 only the yardstick ``chip_smoke.py`` holds each kernel against.
 """
 from __future__ import annotations
@@ -10,6 +10,10 @@ from __future__ import annotations
 import torch
 
 EMPTY = 2 ** 31 - 1          # int32 max: an unused SSU slot
+# FNV-1a 64-bit constants; the offset basis 14695981039346656037 as the
+# int64 with the same bits
+FNV_OFFSET = 14695981039346656037 - 2 ** 64
+FNV_PRIME = 1099511628211
 
 
 def embedding_bag(table, idx):
@@ -72,3 +76,32 @@ def ssu_dedupe_evict(buf, cand, scores):
     score = torch.where(combined != EMPTY, scores, float("inf"))
     keep = torch.sort(score, stable=True).indices[:rn]
     return torch.sort(combined[keep]).values
+
+
+def row_hash(values, accs):
+    """Per-row FNV-1a over each row's value bytes then accumulator bytes
+    (bit-exact target): each part zero-padded to a multiple of 8 bytes and
+    read as native-endian 64-bit words, ``h = (h ^ w) * FNV_PRIME`` from
+    the offset basis, in int64 arithmetic (the multiply wraps, as uint64
+    does).  Returns (n,) int64 holding the uint64 bits."""
+    n = values.shape[0]
+    h = torch.full((n,), FNV_OFFSET, dtype=torch.int64, device=values.device)
+    if n == 0:
+        return h
+    for part in (values, accs):
+        nbytes = part.numel() * part.element_size() // n
+        if nbytes == 0:
+            continue
+        b = part.contiguous().reshape(-1).view(torch.uint8).reshape(n, nbytes)
+        words = -(-b.shape[1] // 8)
+        if b.shape[1] != 8 * words or b.storage_offset() % 8:
+            # zero-pad to whole words (and start 8-byte aligned, which a
+            # view of int64 needs)
+            padded = torch.zeros((n, 8 * words), dtype=torch.uint8,
+                                 device=b.device)
+            padded[:, :b.shape[1]] = b
+            b = padded
+        w = b.view(torch.int64)
+        for i in range(words):
+            h = (h ^ w[:, i]) * FNV_PRIME
+    return h

@@ -15,6 +15,8 @@ import torch
 
 from repro_torch.kernels import LAUNCHES, ops, ref
 
+pytestmark = pytest.mark.card
+
 
 @pytest.fixture
 def card():
@@ -112,3 +114,98 @@ def test_emulator_on_the_card_matches_the_cpu_path(card):
     assert a.report["bytes_written"] == b.report["bytes_written"]
     assert a.report["measured_pls"] == b.report["measured_pls"]
     assert abs(a.auc - b.auc) <= 5e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.int8])
+@pytest.mark.parametrize("n,d", [(1, 1), (7, 3), (257, 5), (1000, 16),
+                                 (513, 9), (5, 0)])
+def test_row_hash_kernel(card, n, d, dtype):
+    """Bit-exact against the plain version: 8-, 4-, 2- and 1-byte load
+    units, ragged rows (36-byte f32 rows, 3-byte int8 rows), an f32
+    accumulator (one 4-byte word, zeros high)."""
+    g = torch.Generator(device=card).manual_seed(n * 7 + d)
+    values = (torch.randn((n, d), generator=g, device=card) * 50).to(dtype)
+    accs = torch.rand(n, generator=g, device=card)
+    before = LAUNCHES["row_hash"]
+    got = ops.row_hash(values, accs)
+    assert LAUNCHES["row_hash"] == before + 1
+    assert got.dtype == torch.int64 and got.shape == (n,)
+    assert torch.equal(got, ref.row_hash(values, accs))
+
+
+@pytest.mark.parametrize("case", ["no rows", "zero-byte rows",
+                                  "zero-byte values", "unaligned view"])
+def test_row_hash_kernel_edge_cases(card, case):
+    if case == "no rows":
+        values, accs = torch.zeros((0, 16), device=card), torch.zeros(
+            0, device=card)
+    elif case == "zero-byte rows":
+        values, accs = torch.zeros((4, 0), device=card), torch.zeros(
+            (4, 0), device=card)
+    elif case == "zero-byte values":
+        values = torch.zeros((6, 0), device=card)
+        accs = torch.arange(6, dtype=torch.float32, device=card)
+    else:   # rows starting 4 bytes past an 8-byte boundary
+        base = torch.arange(4 * 33, dtype=torch.float32, device=card)
+        values = base[1:].reshape(-1)[:4 * 32].reshape(32, 4)
+        accs = torch.arange(32, dtype=torch.float32, device=card)
+    before = LAUNCHES["row_hash"]
+    got = ops.row_hash(values, accs)
+    want = ref.row_hash(values, accs)
+    assert torch.equal(got, want)
+    launched = LAUNCHES["row_hash"] - before
+    if case in ("no rows", "zero-byte rows"):       # answered, no launch
+        assert launched == 0
+        assert (got == ref.FNV_OFFSET).all()
+    else:
+        assert launched == 1
+
+
+def test_row_hash_kernel_refuses_strided_rows(card):
+    values = torch.zeros((8, 16), device=card)[:, ::2]
+    accs = torch.zeros(8, device=card)
+    from repro_torch.kernels import row_hash as rh
+    with pytest.raises(ValueError, match="contiguous"):
+        rh.row_hash(values, accs)
+
+
+@pytest.mark.parametrize("hash_backend", ["host", "kernel"])
+def test_fleet_ledger_on_the_card_hashes_through_the_kernel(card,
+                                                            hash_backend):
+    """Tables on the card put the delta ledger there and every hash
+    through the kernel, whatever ``hash_backend`` name is passed; the
+    counts, ledger and image equal the same writer's on the CPU."""
+    from repro_torch.core import EmbShardSpec, ShardedCheckpointWriter
+    sizes = (1001, 37)
+    rng = np.random.default_rng(3)
+    tabs = [rng.standard_normal((n, 16)).astype(np.float32) for n in sizes]
+    accs = [rng.random(n).astype(np.float32) for n in sizes]
+    out = {}
+    for device in (card, torch.device("cpu")):
+        t = [torch.tensor(x, device=device) for x in tabs]
+        a = [torch.tensor(x, device=device) for x in accs]
+        before = LAUNCHES["row_hash"]
+        w = ShardedCheckpointWriter(t, a, EmbShardSpec(sizes, 3),
+                                    hash_backend=hash_backend)
+        w.save_full([x + 1 for x in t], [x + 1 for x in a], step=1)
+        rows = torch.arange(0, sizes[0], 3, device=device)
+        vals = t[0][rows] + 1                   # equal to the full: skipped
+        vals[::2] += 1
+        w.save_rows(0, rows, vals, a[0][rows] + 1, step=2)
+        w.save_rows(1, np.array([1, 5, 40]), np.ones((3, 16), np.float32),
+                    np.ones(3, np.float32), step=2)     # host rows
+        w.fence()
+        out[device.type] = (w.hash_backend, LAUNCHES["row_hash"] - before,
+                            w.bytes_written, w.delta_rows_skipped,
+                            w.delta_bytes_skipped,
+                            [h.cpu() for h in w._hashes],
+                            w.restore_all()[:2])
+        w.close()
+    gpu, cpu = out["cuda"], out["cpu"]
+    assert (gpu[0], cpu[0]) == ("kernel", "host")
+    assert gpu[1] == 6 and cpu[1] == 0      # 2 at init, 2 full, 2 rows
+    assert gpu[2:5] == cpu[2:5] and gpu[3] > 0
+    assert all(torch.equal(x, y) for x, y in zip(gpu[5], cpu[5]))
+    for x, y in zip(gpu[6][0] + gpu[6][1], cpu[6][0] + cpu[6][1]):
+        np.testing.assert_array_equal(x, y)

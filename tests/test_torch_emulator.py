@@ -140,6 +140,11 @@ def test_entry_points_refuse_to_run_without_a_gpu(setup):
 @pytest.mark.parametrize("kw", [{"sharded_save": True}, {"writer_procs": True},
                                 {"transport": "socket"}, {"attach": True},
                                 {"parity_group_size": 2}])
-def test_sharded_fleet_arguments_wait_for_slice_2(kw):
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        T.CPRManager("cpr", T.SystemParams(), (10, 20), device="cpu", **kw)
+def test_fleet_arguments_configure_like_the_reference(kw):
+    """Every fleet argument of the reference is accepted and configures
+    the fleet as the reference's manager does."""
+    mgr = T.CPRManager("cpr", T.SystemParams(), (10, 20), device="cpu", **kw)
+    r = RManager("cpr", RParams(), (10, 20), **kw)
+    for k in ("sharded_save", "transport", "writer_procs", "async_save",
+              "delta_saves", "attach", "parity_group_size"):
+        assert getattr(mgr, k) == getattr(r, k), k

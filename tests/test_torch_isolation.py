@@ -28,7 +28,12 @@ def _env():
 
 def test_importing_every_port_module_loads_no_jax_and_no_repro():
     mods = list(_port_modules())
-    assert "repro_torch.core.emulator" in mods
+    for m in ("repro_torch.core.emulator", "repro_torch.core.transport",
+              "repro_torch.core.sharded_checkpoint",
+              "repro_torch.launch.shard_server",
+              "repro_torch.analysis.protocol.spec",
+              "repro_torch.kernels.row_hash"):
+        assert m in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -60,10 +65,15 @@ def test_no_import_of_jax_or_repro_is_written_anywhere():
 
 def test_invariant_rules_hold_over_the_port():
     """The stdlib-only linter of the reference, pointed at the port (its
-    rules match files by their path under --root)."""
+    rules match files by their path under --root, so the protocol rules
+    check the port's transport and shard server against the port's copy
+    of the spec, and the wire table of docs/recovery.md)."""
     r = subprocess.run(
         [sys.executable, "-m", "repro.analysis", "--root", str(PORT),
          "--rule", "durability-ordering", "--rule", "exception-hygiene",
-         "--rule", "time-source", "--rule", "lock-discipline"],
+         "--rule", "time-source", "--rule", "lock-discipline",
+         "--rule", "protocol-conformance", "--rule", "wire-doc-drift",
+         "--rule", "epoch-threading"],
         env=_env(), cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
+    assert "0 unsuppressed" in r.stdout
