@@ -41,6 +41,37 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    alone; this checks what the whole path on the card (trackers, saves,
    the fleet, restores, evaluation) hands back.
 
+The LM serving path (RecurrentGemma-2B at full width, the DLRM tensors
+freed first):
+
+2b. ``flash_attention`` and ``rglru_scan`` against their plain versions at
+   the path's shapes: (2, 10, 4096, 256) bf16 queries over (2, 1, 4096,
+   256) keys with window 2048, gemma2's (1, 8, 4096, 256) over (1, 4,
+   4096, 256) global with softcap 50, the reduced f32 case; the scan at
+   (2, 4096, 2560) f32 and bf16 (bit for bit).  bf16 attention outputs
+   must agree within 1e-2 * |plain| + 4e-3 (one bf16 rounding and some),
+   and the plain version with its window one key tile short must fall
+   outside that limit.  Bounds: the unmasked band's flops over the peak
+   of the dtype's arithmetic (bf16 tensor cores, f32 FMA) or the bytes,
+   whichever is larger; library time: ``F.scaled_dot_product_attention``
+   with the band as its mask where there is no softcap.
+3b. The main path: RecurrentGemma-2B parameters (f32) drawn on the card,
+   one prefill ``forward`` over (2, 4096) tokens in bf16, then ``serve()``
+   answers 8 requests (prompts up to 64 tokens, batch 4, 32 generated).
+   Counts are reset before the forward and read after ``serve()``:
+   ``flash_attention`` must have launched 8 times (the local-attention
+   layers) and ``rglru_scan`` 18 (the RG-LRU layers).  Then the prefill's
+   time (the median of 5 forwards) and a decode step's time at batch 4
+   past the window (a full 2,048-slot ring per local layer), the
+   workload of ``python -m repro_torch.launch.profile_serve``.
+4b. At full width in f32, prefill (``forward``, through both kernels) and
+   decode (``decode_step`` teacher-forced over the same 2,176 tokens, past
+   the window) give the same logits at every position within 1e-4 of the
+   largest logit (the steps past the window are timed); at the reduced
+   config, the card and the CPU give the
+   same ``forward`` logits within 1e-4 and identical greedy ``serve()``
+   completions.
+
 The last two lines are ``{"kernels": [...]}`` and ``{"ok": true, ...}``.
 """
 from __future__ import annotations
@@ -60,12 +91,31 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 N_BIG, D, B = 10_131_227, 16, 512
 STEPS_FLAT = 35
 STEPS_FLEET = 35
 N_RAGGED = 1_000_003                  # rows of the d = 9 row_hash case
 FLEET = {"sharded_save": True, "delta_saves": True, "hash_backend": "kernel",
          "transport": "inproc"}
+# the LM serving path (phases 2b-4b): RecurrentGemma-2B at full width; the
+# workload of phase 3b is repro_torch.launch.profile_serve's (ARCH,
+# PREFILL_SHAPE, DECODE_*), imported in main()
+AGREE_SEQ = 2176             # prefill vs decode: past the window, ring wraps
+PREFILL_REPS = 5             # prefill time: the median of this many forwards
+# flash_attention cases of phase 2b: name, (B, Hq, Hkv, S, hd), dtype,
+# window, softcap, (rtol, atol); the first is the serving path's own.  The
+# kernel and the plain version read the same inputs and both sum in f32,
+# so bf16 outputs may differ by one rounding (at most 2**-7 of the value)
+FLASH_CASES = (
+    ("recurrentgemma-2b prefill", (2, 10, 1, 4096, 256), torch.bfloat16,
+     2048, 0.0, (1e-2, 4e-3)),
+    ("gemma2-2b global", (1, 8, 4, 4096, 256), torch.bfloat16, 0, 50.0,
+     (1e-2, 4e-3)),
+    ("recurrentgemma-2b reduced", (2, 4, 1, 128, 64), torch.float32, 64, 0.0,
+     (0.0, 2e-5)))
+KEY_TILE = 32                # keys per tile of csrc/flash_attention.cu
+SCAN_SHAPE = (2, 4096, 2560)  # the RG-LRU layers' (B, S, width) at prefill
 SCRATCH = Path(__file__).resolve().parent / "build" / "chip_smoke"
 PROBE_ENV = "CHIP_SMOKE_WRITER_PROBE_DIR"
 
@@ -91,9 +141,9 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float = 0.0):
+def bound(nbytes: float, ops: float = 0.0, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -507,6 +557,259 @@ def phase_agreement(dev):
     shutil.rmtree(SCRATCH, ignore_errors=True)
 
 
+def band_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask keeps, queries right-aligned to the KV
+    tail: the work a kernel that skips masked tiles must still do."""
+    i = np.arange(Sq)[:, None] + (Skv - Sq)
+    j = np.arange(Skv)[None, :]
+    keep = np.ones((Sq, Skv), bool)
+    if causal:
+        keep &= j <= i
+    if window:
+        keep &= (i - j) < window
+    return int(keep.sum())
+
+
+def phase_lm_kernels(dev, ops, ref):
+    """``flash_attention`` and ``rglru_scan`` against their plain versions
+    at the serving path's shapes (phase 2b)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = {}
+    for name, (B, Hq, Hkv, S, hd), dtype, window, cap, (rtol, atol) in \
+            FLASH_CASES:
+        q = torch.randn((B, S, Hq, hd), generator=gen, device=dev).to(dtype)
+        k = torch.randn((B, S, Hkv, hd), generator=gen, device=dev).to(dtype)
+        v = torch.randn((B, S, Hkv, hd), generator=gen, device=dev).to(dtype)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def kernel():
+            return ops.flash_attention(q, k, v, causal=True, window=window,
+                                       softcap=cap)
+
+        def plain():
+            return ref.flash_attention(qt, kt, vt, True, window, cap)
+
+        want = plain().transpose(1, 2).float()
+
+        def excess(got):
+            """max |got - want| and its largest ratio to the limit."""
+            diff = (got.float() - want).abs()
+            return (diff.max().item(),
+                    (diff / (rtol * want.abs() + atol)).max().item())
+
+        err, ratio = excess(kernel())
+        # what a kernel whose window edge sat one key tile off would read
+        # (the plain version with the window one tile shorter): the limit
+        # must reject it
+        off = (excess(ref.flash_attention(qt, kt, vt, True, window - KEY_TILE,
+                                          cap).transpose(1, 2))
+               if window else None)
+        pairs = B * Hq * band_pairs(S, S, True, window)
+        rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+        t_b, by = bound((q.numel() * 2 + k.numel() * 2) * q.element_size(),
+                        ops=4 * hd * pairs, ops_per_s=rate)
+        library = None
+        if not cap:         # one PyTorch call computes the same function
+            i = torch.arange(S, device=dev)
+            band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :]
+                                                 < (window or S + 1))
+            library = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=band, enable_gqa=True))
+        row = dict(max_abs_err=err, ms=time_ms(kernel), plain_ms=time_ms(plain),
+                   bound_ms=t_b, bound_by=by, library_ms=library)
+        ok = ratio <= 1.0
+        print(f"flash_attention {name}: q {tuple(q.shape)} k {tuple(k.shape)} "
+              f"{str(dtype)[6:]} window={window} softcap={cap} "
+              f"pairs={pairs} max_abs_err={err:.3e} limit |err| <= "
+              f"{rtol:g}*|plain| + {atol:g} (largest share of it "
+              f"{ratio:.3f}) ok={ok} ms={row['ms']:.4f} "
+              f"plain_ms={row['plain_ms']:.4f} bound_ms={t_b:.5f} ({by}) "
+              f"library_ms={library}")
+        if off is not None:
+            print(f"  window one key tile ({KEY_TILE}) short would read: "
+                  f"max_abs_err={off[0]:.3e}, {off[1]:.1f} times the limit")
+            if off[1] <= 1.0:
+                fail(f"the flash_attention {name} limit would not see a "
+                     f"window one tile off")
+        if not ok:
+            fail(f"flash_attention {name} disagrees with its plain version")
+        rows.setdefault("flash_attention", row)    # the serving path's case
+        del q, k, v, qt, kt, vt, want
+
+    for dtype in (torch.float32, torch.bfloat16):
+        a = torch.sigmoid(torch.randn(SCAN_SHAPE, generator=gen,
+                                      device=dev)).to(dtype)
+        b = (torch.randn(SCAN_SHAPE, generator=gen, device=dev) * 0.1
+             ).to(dtype)
+        got, want = ops.rglru_scan(a, b), ref.rglru_scan(a, b)
+        err = (got.float() - want.float()).abs().max().item()
+        t_b, by = bound(3 * a.numel() * a.element_size(), ops=2 * a.numel())
+        row = dict(max_abs_err=err,
+                   ms=time_ms(lambda: ops.rglru_scan(a, b)),
+                   plain_ms=time_ms(lambda: ref.rglru_scan(a, b)),
+                   bound_ms=t_b, bound_by=by, library_ms=None)
+        print(f"rglru_scan {tuple(a.shape)} {str(dtype)[6:]}: "
+              f"max_abs_err={err:.3e} (bit-exact expected) "
+              f"differing={int((got != want).sum())} ms={row['ms']:.4f} "
+              f"plain_ms={row['plain_ms']:.4f} bound_ms={t_b:.5f} ({by}) "
+              f"library_ms=None (no PyTorch call scans a recurrence)")
+        if not torch.equal(got, want):
+            fail("rglru_scan disagrees with its plain version")
+        rows.setdefault("rglru_scan", row)         # f32, as the path runs it
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_serving(dev, kernels, cfg):
+    """The serving path at full width (phase 3b): one prefill ``forward``
+    over ``PREFILL_SHAPE`` tokens, then ``serve()`` answers 8 requests;
+    then the prefill's time over more forwards and a decode step's time at
+    a context past the window (``profile_serve``'s workload)."""
+    from repro_torch.launch import profile_serve as P
+    from repro_torch.launch.serve import make_requests, serve
+    from repro_torch.models import transformer as T
+    arch = cfg.name
+    t0 = time.perf_counter()
+    params = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = T.param_count(params)
+    print(f"{arch}: {n_params:,} parameters, f32 ({n_params * 4 / 1e9:.2f} "
+          f"GB) on the card, {cfg.dtype} activations "
+          f"({time.perf_counter() - t0:.1f} s to draw)")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    kinds = cfg.layer_kinds
+    want = {"flash_attention": sum(k != "rglru" for k in kinds),
+            "rglru_scan": sum(k == "rglru" for k in kinds)}
+    toks = torch.randint(0, cfg.vocab_size, P.PREFILL_SHAPE, generator=gen,
+                         device=dev)
+    T.forward(params, {"tokens": toks[:, :256]}, cfg)      # warm-up
+    reqs = make_requests(8, 64, cfg.vocab_size, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def prefill():
+        t0 = time.perf_counter()
+        logits, _ = T.forward(params, {"tokens": toks}, cfg)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, logits
+
+    kernels.reset_launches()
+    prefill_s, logits = prefill()
+    finite = bool(torch.isfinite(logits).all())
+    shape = tuple(logits.shape)
+    del logits
+    done, stats = serve(cfg, reqs, batch=4, gen=32, params=params, device=dev)
+    counts = dict(kernels.LAUNCHES)
+
+    times = [prefill_s] + [prefill()[0] for _ in range(PREFILL_REPS - 1)]
+    prefill_s = statistics.median(times)
+    decode = P.decode_past_window(params, cfg, dev, gen)
+    step_s = []
+    for i in range(P.DECODE_WARMUP + P.DECODE_STEPS):
+        t0 = time.perf_counter()
+        decode(i)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    step_ms = statistics.median(step_s[P.DECODE_WARMUP:]) * 1e3
+
+    n_tok = P.PREFILL_SHAPE[0] * P.PREFILL_SHAPE[1]
+    print(f"prefill {arch} {P.PREFILL_SHAPE}: median of {PREFILL_REPS} "
+          f"forwards {prefill_s * 1e3:.1f} ms (each: "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)}), "
+          f"{n_tok / prefill_s:.0f} tokens/s, logits {shape} finite="
+          f"{finite}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    print(f"serve {arch}: {len(done)} requests (prompts "
+          f"{min(map(len, reqs))}..{max(map(len, reqs))} tokens, so a "
+          f"cache of {max(map(len, reqs)) + 32} slots), batch 4, gen 32: "
+          f"{stats['tokens']} tokens in "
+          f"{stats['wall_s']:.2f} s -> {stats['tok_per_s']:.1f} tokens/s, "
+          f"{stats['wall_s'] / stats['steps'] * 1e3:.2f} ms per decode step "
+          f"({stats['steps']} steps, {stats['refills']} refills)")
+    print(f"decode past the window {arch}: batch {P.DECODE_BATCH}, f32 "
+          f"state with a full {cfg.sliding_window}-slot ring per local "
+          f"layer, {cfg.dtype} activations: median {step_ms:.2f} ms per "
+          f"step over {P.DECODE_STEPS} steps (each synchronized), "
+          f"{P.DECODE_BATCH / step_ms * 1e3:.1f} tokens/s")
+    print(f"launches (prefill + serve): {json.dumps(counts)}")
+    if shape != (*P.PREFILL_SHAPE, cfg.vocab_size) or not finite:
+        fail("prefill logits have the wrong shape or are not finite")
+    if sorted(done) != list(range(8)) or any(
+            len(c) != 32 or not all(0 <= t < cfg.vocab_size for t in c)
+            for c in done.values()):
+        fail("serve() did not answer every request with 32 tokens")
+    for name, n in want.items():
+        if counts[name] != n:
+            fail(f"{name} launched {counts[name]} times in the serving path, "
+                 f"not {n}")
+    return params, counts
+
+
+def phase_lm_agreement(dev, params, cfg, small):
+    """Prefill against decode at full width in f32 over AGREE_SEQ tokens,
+    then the ``small`` config on the card against the CPU (phase 4b)."""
+    import dataclasses
+
+    from repro_torch.launch.serve import make_requests, serve
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    arch = cfg.name
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    S = AGREE_SEQ
+    gen = torch.Generator(device=dev).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (2, S), generator=gen, device=dev)
+    t0 = time.perf_counter()
+    full, _ = T.forward(params, {"tokens": toks}, cfg)
+    state = T.init_decode_state(cfg, 2, S, torch.float32, dev)
+    err = torch.zeros((), device=dev)
+    W = cfg.sliding_window
+    for i in range(S):
+        if i == W:              # time the steps past the window
+            torch.cuda.synchronize()
+            t_past = time.perf_counter()
+        logits, state = T.decode_step(params, state, toks[:, i], i, cfg)
+        err = torch.maximum(err, (logits - full[:, i]).abs().max())
+    torch.cuda.synchronize()
+    past_ms = (time.perf_counter() - t_past) / (S - W) * 1e3
+    scale = full.abs().max().item()
+    err = err.item()
+    # f32 throughout; the two paths sum in different orders (flash tiles
+    # and the scan kernel against the ring cache and the one-step
+    # recurrence), so they agree to f32 rounding, well inside 1e-4 of the
+    # largest logit
+    ok = err <= 1e-4 * scale
+    print(f"prefill vs decode ({arch}, f32, (2, {S}) tokens): "
+          f"max_abs_err={err:.3e} over every position, max |logit|="
+          f"{scale:.4f}, tol=1e-4*max|logit| ok={ok} "
+          f"({time.perf_counter() - t0:.1f} s); decode steps past the "
+          f"window (positions {W}..{S - 1}, batch 2, f32 activations): "
+          f"{past_ms:.2f} ms per step, not synchronized per step")
+    if not ok:
+        fail("prefill and decode disagree at full width")
+    del full, state
+    torch.cuda.empty_cache()
+
+    cfg = small
+    cpu = T.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = tree_map(lambda t: t.to(dev), cpu)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 128)))
+    got, _ = T.forward(card, {"tokens": toks.to(dev)}, cfg)
+    want, _ = T.forward(cpu, {"tokens": toks}, cfg)
+    err = (got.cpu() - want).abs().max().item()
+    reqs = make_requests(8, 24, cfg.vocab_size, seed=0)
+    a, _ = serve(cfg, reqs, batch=4, gen=16, params=card, device=dev)
+    b, _ = serve(cfg, reqs, batch=4, gen=16, params=cpu, device="cpu")
+    # f32 sums in another order on the card (cuBLAS, the kernels)
+    ok = err <= 1e-4 and a == b
+    print(f"agreement ({cfg.name}, f32): card vs CPU forward "
+          f"max_abs_err={err:.3e} tol=1e-4; serve() greedy completions of 8 "
+          f"requests identical={a == b} ok={ok}")
+    if not ok:
+        fail("the reduced model on the card disagrees with the CPU path")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on a GPU")
@@ -514,7 +817,7 @@ def main() -> None:
     from repro_torch import kernels, resolve_device
     from repro_torch.kernels import _build
     from repro_torch.kernels import embedding_bag as eb
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels import row_hash as rh
     from repro_torch.kernels import ssu_dedupe as sd
     from repro_torch.kernels import tracker_select as ts
@@ -541,17 +844,33 @@ def main() -> None:
     from repro_torch.configs.dlrm import DLRM_KAGGLE
     launches = phase_main_path(dev, kernels, DLRM_KAGGLE)
     phase_agreement(dev)
+    torch.cuda.empty_cache()
+
+    from repro_torch.configs import get_config
+    rows.update(phase_lm_kernels(dev, ops, ref))
+    from repro_torch.launch.profile_serve import ARCH
+    lm = get_config(ARCH)
+    params, lm_launches = phase_serving(dev, kernels, lm)
+    for name in ("flash_attention", "rglru_scan"):
+        launches[name] = lm_launches[name]
+    phase_lm_agreement(dev, params, lm, lm.reduced())
+    del params
+    torch.cuda.empty_cache()
 
     sources = {"embedding_bag": "embedding_bag.cu",
                "embedding_bag_backward": "embedding_bag.cu",
                "tracker_select": "tracker_select.cu",
                "ssu_dedupe_evict": "ssu_dedupe.cu",
-               "row_hash": "row_hash.cu"}
+               "row_hash": "row_hash.cu",
+               "flash_attention": "flash_attention.cu",
+               "rglru_scan": "rglru_scan.cu"}
     replaces = {"embedding_bag": "src/repro/kernels/embedding_bag.py:44",
                 "embedding_bag_backward": "src/repro/models/dlrm.py:82",
                 "tracker_select": "src/repro/kernels/tracker_select.py:112",
                 "ssu_dedupe_evict": "src/repro/kernels/ssu_dedupe.py:59",
-                "row_hash": "src/repro/kernels/row_hash.py:71"}
+                "row_hash": "src/repro/kernels/row_hash.py:71",
+                "flash_attention": "src/repro/kernels/flash_attention.py:90",
+                "rglru_scan": "src/repro/kernels/rglru_scan.py:53"}
     line = [{"name": name, "route": "cuda",
              "source": f"src/repro_torch/csrc/{sources[name]}",
              "replaces": replaces[name], "launches": launches[name],

@@ -16,8 +16,10 @@ import torch
 def resolve_device(device=None) -> torch.device:
     """``None`` means ``cuda``.  A CUDA device without a visible GPU raises.
 
-    Picking CUDA also turns TF32 off for matmuls and cuDNN: the reference
-    runs its matmuls in full f32, so the port does too."""
+    Picking CUDA also turns TF32 off for matmuls and cuDNN, and reduced-
+    precision (bf16) reductions in cuBLAS's split-K bf16 matmuls: the
+    reference runs its f32 matmuls in full f32 and sums its bf16 matmuls
+    in f32, so the port does too."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -26,6 +28,8 @@ def resolve_device(device=None) -> torch.device:
                 "the port on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev

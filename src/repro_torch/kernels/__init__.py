@@ -14,7 +14,8 @@ from __future__ import annotations
 import torch
 
 LAUNCHES = {"embedding_bag": 0, "embedding_bag_backward": 0,
-            "tracker_select": 0, "ssu_dedupe_evict": 0, "row_hash": 0}
+            "tracker_select": 0, "ssu_dedupe_evict": 0, "row_hash": 0,
+            "flash_attention": 0, "rglru_scan": 0}
 
 
 def reset_launches() -> None:

@@ -35,6 +35,7 @@ _libs: Dict[str, ctypes.CDLL] = {}
 P = ctypes.c_void_p
 I = ctypes.c_int
 LL = ctypes.c_longlong
+F = ctypes.c_float
 
 
 def _nvcc() -> str:

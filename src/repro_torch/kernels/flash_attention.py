@@ -1,0 +1,80 @@
+"""Flash attention (forward) on Hopper: online softmax with causal /
+sliding-window masks, the gemma2 logit softcap and GQA/MQA.
+
+Replaces ``repro.kernels.flash_attention.flash_attention`` (Pallas,
+forward only).  The CUDA source ``csrc/flash_attention.cu`` says what
+bounds it; it walks only the key tiles the mask touches.
+
+The kernel layout is the reference's: q (B, Hq, Sq, hd), k/v (B, Hkv,
+Skv, hd), queries right-aligned to the KV tail.  The kernel addresses each
+tensor by its strides, so ``ops.flash_attention`` hands it transposed
+views of the model's (B, S, H, hd) tensors without a copy, and the output
+keeps q's memory layout.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import (LAUNCHES, _build, check_launch, require,
+                                 stream_of)
+
+HEAD_DIMS = (32, 64, 128, 256)
+_SIGS = {"flash_attention_fwd": (_build.I, (
+    _build.P, _build.P, _build.P, _build.P, _build.P,
+    _build.I, _build.I, _build.I, _build.I, _build.I, _build.I, _build.I,
+    _build.F, _build.I, _build.I, _build.F, _build.P))}
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """Contiguous head dim; pointer and (batch, head, seq) strides in
+    whole 16-byte units, as the kernel's vector loads need."""
+    size = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s * size % 16 == 0 for s in t.stride()[:3]))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """Kernel launch.  q (B, Hq, Sq, hd), k/v (B, Hkv, Skv, hd), one dtype
+    (f32 or bf16) on one CUDA device, hd in ``HEAD_DIMS``, Hq a multiple
+    of Hkv, Skv >= Sq -> (B, Hq, Sq, hd) in q's dtype and strides."""
+    require(q.is_cuda and k.device == q.device and v.device == q.device,
+            "flash_attention launches a CUDA kernel: q, k and v must be on "
+            "one CUDA device")
+    require(q.dtype in (torch.float32, torch.bfloat16)
+            and k.dtype == q.dtype and v.dtype == q.dtype,
+            f"q, k, v must all be float32 or all bfloat16, got {q.dtype}, "
+            f"{k.dtype}, {v.dtype}")
+    require(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape,
+            "q must be (B, Hq, Sq, hd) and k, v (B, Hkv, Skv, hd)")
+    B, Hq, Sq, hd = q.shape
+    _, Hkv, Skv, _ = k.shape
+    require(k.shape[0] == B and k.shape[3] == hd,
+            "q, k and v must share batch and head dim")
+    require(hd in HEAD_DIMS, f"head dim {hd} not in {HEAD_DIMS}")
+    require(Hkv > 0 and Hq % Hkv == 0,
+            f"Hq={Hq} must be a multiple of Hkv={Hkv}")
+    require(Skv >= Sq, "queries are right-aligned to the KV tail: Skv must "
+            "be >= Sq")
+    require(window >= 0 and softcap >= 0, "window and softcap must be >= 0")
+    out = torch.empty_like(q)              # q's strides (dense views)
+    require(all(_aligned(t) for t in (q, k, v, out)),
+            "q, k, v need a contiguous head dim and 16-byte aligned "
+            "pointers and strides")
+    if q.numel() == 0:
+        return out
+    strides = (_build.LL * 12)(*(s for t in (q, k, v, out)
+                                 for s in t.stride()[:3]))
+    lib = _build.load("flash_attention", _SIGS)
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            strides, B, Hq, Hkv, Sq, Skv, hd, int(q.dtype == torch.bfloat16),
+            1.0 / math.sqrt(hd), int(causal), int(window), float(softcap),
+            stream_of(q))
+    check_launch(rc, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out

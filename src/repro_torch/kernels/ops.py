@@ -10,7 +10,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import embedding_bag as _eb
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import on_card, ref
+from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import row_hash as _rh
 from repro_torch.kernels import ssu_dedupe as _sd
 from repro_torch.kernels import tracker_select as _ts
@@ -20,6 +22,26 @@ def embedding_bag(table, idx):
     """Sum-pooled lookup (B, hot) -> (B, d), differentiable in ``table``
     (dense gradient)."""
     return _eb.EmbeddingBag.apply(table, idx)
+
+
+def flash_attention(q, k, v, causal=True, window=0, softcap=0.0):
+    """Layer layout: q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd) ->
+    (B, Sq, Hq, hd).  The kernel takes the (B, H, S, hd) views in place."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if on_card(q, k, v):
+        out = _fa.flash_attention(qt, kt, vt, causal=causal, window=window,
+                                  softcap=softcap)
+    else:
+        out = ref.flash_attention(qt, kt, vt, causal=causal, window=window,
+                                  softcap=softcap)
+    return out.transpose(1, 2)
+
+
+def rglru_scan(a, b):
+    """h_t = a_t * h_{t-1} + b_t over axis 1 of (B, S, w), h_0 = 0."""
+    if on_card(a, b):
+        return _rg.rglru_scan(a.contiguous(), b.contiguous())
+    return ref.rglru_scan(a, b)
 
 
 def tracker_select(counts, indices, k: int, seg_size: int = 512):

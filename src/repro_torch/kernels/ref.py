@@ -1,11 +1,14 @@
 """Plain PyTorch versions of the port's kernels (the allclose targets).
 
 They mirror ``repro.kernels.ref`` (``embedding_bag``, ``tracker_select``,
-``ssu_dedupe_evict``, ``row_hash``) and add the embedding-bag backward,
-which the reference leaves to XLA.  The CPU path runs them; on the card they are
-only the yardstick ``chip_smoke.py`` holds each kernel against.
+``ssu_dedupe_evict``, ``row_hash``, ``flash_attention``, ``rglru_scan``)
+and add the embedding-bag backward, which the reference leaves to XLA.
+The CPU path runs them; on the card they are only the yardstick
+``chip_smoke.py`` holds each kernel against.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -29,6 +32,46 @@ def embedding_bag_backward(grad_out, idx, n_rows: int):
     grad = torch.zeros((n_rows, grad_out.shape[1]), dtype=torch.float32,
                        device=grad_out.device)
     return grad.index_add_(0, idx.reshape(-1).long(), rows)
+
+
+def flash_attention(q, k, v, causal=True, window=0, softcap=0.0):
+    """q: (B, Hq, Sq, hd); k/v: (B, Hkv, Skv, hd) -> (B, Hq, Sq, hd).
+
+    The (B, Hq, Sq, Skv) f32 scores are materialized after K/V are
+    repeated to every query head (kv head = h // g); queries are
+    right-aligned to the KV tail."""
+    B, Hq, Sq, hd = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    kq = k.repeat_interleave(g, dim=1)
+    vq = v.repeat_interleave(g, dim=1)
+    s = torch.einsum("bhsd,bhtd->bhst", q.float(), kq.float()) / math.sqrt(hd)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    i = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+    j = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= j <= i
+    if window:
+        mask &= (i - j) < window
+    s = torch.where(mask[None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", p, vq.float()).to(q.dtype)
+
+
+def rglru_scan(a, b, h0=None):
+    """h_t = a_t * h_{t-1} + b_t over axis 1 in f32.  a, b: (B, S, w) ->
+    (B, S, w) in a's dtype."""
+    B, S, w = a.shape
+    h = (torch.zeros((B, w), dtype=torch.float32, device=a.device)
+         if h0 is None else h0.float())
+    af, bf = a.float(), b.float()
+    hs = torch.empty((B, S, w), dtype=torch.float32, device=a.device)
+    for t in range(S):
+        h = af[:, t] * h + bf[:, t]
+        hs[:, t] = h
+    return hs.to(a.dtype)
 
 
 def tracker_select(counts, indices, k: int, seg_size: int = 512):

@@ -12,27 +12,19 @@ no ``use_kernel`` switch.
 """
 from __future__ import annotations
 
-import math
-
-import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.dlrm import DLRMConfig  # noqa: F401  (re-export)
 from repro_torch.kernels import ops
+from repro_torch.models.layers import dense_init
+from repro_torch.tree import params_from_jax  # noqa: F401  (re-export)
 from repro_torch.tree import tree_map
-
-
-def _uniform(shape, scale, generator, device):
-    u = torch.rand(shape, generator=generator, device=device,
-                   dtype=torch.float32)
-    return u.mul_(2 * scale).sub_(scale)
 
 
 def init_mlp_stack(sizes, generator, device):
     """``dense_init`` (uniform in ±1/sqrt(fan_in)) weights, zero biases."""
-    return [{"w": _uniform((a, b), 1.0 / math.sqrt(max(a, 1)), generator,
-                           device),
+    return [{"w": dense_init(generator, (a, b), device=device),
              "b": torch.zeros(b, dtype=torch.float32, device=device)}
             for a, b in zip(sizes[:-1], sizes[1:])]
 
@@ -44,8 +36,8 @@ def init_dlrm(cfg: DLRMConfig, generator=None, device=None) -> dict:
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
-    tables = [_uniform((n, cfg.emb_dim), 1.0 / math.sqrt(n), generator,
-                       device) for n in cfg.table_sizes]
+    tables = [dense_init(generator, (n, cfg.emb_dim), device=device)
+              for n in cfg.table_sizes]
     return {
         "tables": tables,
         "bottom": init_mlp_stack((cfg.num_dense,) + cfg.bottom_mlp,
@@ -53,13 +45,6 @@ def init_dlrm(cfg: DLRMConfig, generator=None, device=None) -> dict:
         "top": init_mlp_stack((cfg.interaction_dim,) + cfg.top_mlp,
                               generator, device),
     }
-
-
-def params_from_jax(tree, device=None) -> dict:
-    """The reference's ``init_dlrm`` output, as numpy arrays, on ``device``."""
-    device = resolve_device(device)
-    return tree_map(lambda a: torch.tensor(np.asarray(a), device=device),
-                    tree)
 
 
 def params_to_numpy(params) -> dict:

@@ -1,0 +1,247 @@
+"""Core layers of the language models: norms, RoPE, GQA attention, MLPs.
+
+The port of ``repro.models.layers``: ``init_*`` return dicts of tensors
+with the reference's names and shapes, ``apply`` functions are plain.
+Full-sequence attention always goes through ``kernels.ops.flash_attention``
+(the CUDA kernel for CUDA tensors, its plain version for CPU ones), so
+there is no ``use_flash`` switch; the decode step attends over its cache
+with plain tensor code, as the reference does.
+
+Differences from the reference, each raised rather than run: M-RoPE
+(Qwen2-VL), QKV biases (Qwen) and bidirectional attention (HuBERT) come
+with their slices, and positions must be contiguous (``arange(S)``), the
+flash kernel's contract.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import LOCAL_ATTN
+from repro_torch.kernels import ops
+
+
+# --------------------------------------------------------------------------
+# initializers
+# --------------------------------------------------------------------------
+def dense_init(generator, shape, in_axis=0, device=None):
+    """Uniform in +-1/sqrt(fan_in), f32 (the reference's ``dense_init``)."""
+    fan_in = shape[in_axis] if isinstance(in_axis, int) else 1
+    scale = 1.0 / math.sqrt(max(fan_in, 1))
+    u = torch.rand(shape, generator=generator, device=device,
+                   dtype=torch.float32)
+    return u.mul_(2 * scale).sub_(scale)
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+def init_norm(d, kind="rmsnorm", device=None):
+    p = {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=torch.float32, device=device)
+    return p
+
+
+def apply_norm(p, x, eps=1e-6):
+    """In f32, cast back to x's dtype (gemma's 1+scale folded into init)."""
+    xf = x.float()
+    if "bias" in p:  # layernorm
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, unbiased=False)
+        out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    else:  # rmsnorm
+        ms = xf.square().mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(ms + eps) * p["scale"]
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# rotary embeddings
+# --------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, hd); positions broadcastable to (..., S).  Rotates
+    split halves (not interleaved pairs), angles in f32."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)        # (hd/2,)
+    ang = positions[..., None].float() * freqs              # (..., S, hd/2)
+    ang = ang[..., None, :]                                 # (..., S, 1, hd/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def contiguous_positions(positions, S: int, device=None):
+    """The (1, S) positions ``arange(S)``.  A given ``positions`` must equal
+    it (broadcast over the batch), or this raises: the flash kernel implies
+    contiguous positions."""
+    want = torch.arange(S, device=device)
+    if positions is not None and (positions.shape[-1] != S or not bool(
+            (positions.to(want) == want).all())):
+        raise NotImplementedError(
+            "positions other than arange(S) are not supported: the flash "
+            "attention kernel implies contiguous positions")
+    return want[None, :]
+
+
+# --------------------------------------------------------------------------
+# attention (GQA, optional sliding window / softcap / KV cache)
+# --------------------------------------------------------------------------
+def _check_attention_config(cfg):
+    if cfg.mrope:
+        raise NotImplementedError("M-RoPE (Qwen2-VL) comes with the VLM slice")
+    if cfg.qkv_bias:
+        raise NotImplementedError("QKV biases (Qwen) come with the Qwen slice")
+    if not cfg.causal:
+        raise NotImplementedError(
+            "bidirectional attention (HuBERT) comes with the audio slice")
+
+
+def init_attention(generator, cfg, device=None):
+    _check_attention_config(cfg)
+    d, hd = cfg.d_model, cfg.head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    return {"wq": dense_init(generator, (d, nq * hd), device=device),
+            "wk": dense_init(generator, (d, nkv * hd), device=device),
+            "wv": dense_init(generator, (d, nkv * hd), device=device),
+            "wo": dense_init(generator, (nq * hd, d), device=device)}
+
+
+def _softcap(x, cap):
+    return torch.tanh(x / cap) * cap if cap else x
+
+
+def _project_qkv(p, x, cfg):
+    B, S, _ = x.shape
+    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, nq, hd)
+    k = (x @ p["wk"].to(x.dtype)).reshape(B, S, nkv, hd)
+    v = (x @ p["wv"].to(x.dtype)).reshape(B, S, nkv, hd)
+    return q, k, v
+
+
+def _sdpa(q, k, v, mask, softcap=0.0):
+    """q: (B,S,Hq,hd) k/v: (B,T,Hkv,hd); GQA via head grouping; mask
+    (B,S,T).  Plain f32 attention (the decode step's)."""
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    g = Hq // Hkv
+    qf = q.float().reshape(B, S, Hkv, g, hd)
+    logits = torch.einsum("bskgd,btkd->bkgst", qf, k.float()) / math.sqrt(hd)
+    logits = _softcap(logits, softcap)
+    logits = torch.where(mask[:, None, None], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    return out.reshape(B, S, Hq, hd).to(q.dtype)
+
+
+def attention_forward(p, x, cfg, kind, positions=None):
+    """Full-sequence causal attention (train / prefill) through the flash
+    kernel.  kind: "attn" (global) or "local" (sliding window)."""
+    _check_attention_config(cfg)
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg)
+    positions = contiguous_positions(positions, S, x.device)
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    window = cfg.sliding_window if kind == LOCAL_ATTN else 0
+    out = ops.flash_attention(q, k, v, causal=True, window=window,
+                              softcap=cfg.attn_softcap)
+    return out.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+
+
+def init_kv_cache(cfg, kind, batch, max_len, dtype, device=None):
+    """KV cache for one attention layer.  Local layers use a ring buffer of
+    window size; global layers a full-length buffer.  With
+    ``cfg.kv_cache_dtype == "int8"`` keys/values are stored quantized with a
+    per-(token, kv-head) bf16 scale."""
+    W = (min(cfg.sliding_window, max_len)
+         if (kind == LOCAL_ATTN and cfg.sliding_window) else max_len)
+    shape = (batch, W, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "ks": torch.zeros(shape[:3], dtype=torch.bfloat16,
+                                  device=device),
+                "vs": torch.zeros(shape[:3], dtype=torch.bfloat16,
+                                  device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _quantize_kv(x):
+    """x: (B, 1, kv, hd) -> (int8 values, per-(B,1,kv) bf16 scale)."""
+    xf = x.float()
+    s = torch.clamp_min(xf.abs().amax(-1) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
+    return q, s.to(torch.bfloat16)
+
+
+def attention_decode(p, x, cache, pos: int, cfg, kind):
+    """One-token decode step.  x: (B, 1, d); pos: int, the same for the
+    whole batch.  Keys are rotated at insert time so the ring buffer never
+    re-rotates.  Writes the new token into ``cache`` in place (slot
+    pos % W) and returns (y, cache)."""
+    _check_attention_config(cfg)
+    B = x.shape[0]
+    q, k, v = _project_qkv(p, x, cfg)
+    if cfg.rope_theta > 0:
+        posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+        q = apply_rope(q, posb, cfg.rope_theta)
+        k = apply_rope(k, posb, cfg.rope_theta)
+    W = cache["k"].shape[1]
+    slot = pos % W
+    if "ks" in cache:
+        for name, t in (("k", k), ("v", v)):
+            tq, ts = _quantize_kv(t)
+            cache[name][:, slot] = tq[:, 0]
+            cache[name + "s"][:, slot] = ts[:, 0]
+        # dequantize for the attention reads
+        ck = (cache["k"].float() * cache["ks"].float()[..., None]).to(x.dtype)
+        cv = (cache["v"].float() * cache["vs"].float()[..., None]).to(x.dtype)
+    else:
+        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+        ck, cv = cache["k"], cache["v"]
+    # validity: slot t holds absolute position p_t; with ring writes,
+    # valid iff its position <= pos and within window (local) / history.
+    idx = torch.arange(W, device=x.device)
+    wraps = (pos // W) * W + idx
+    abs_pos = torch.where(idx <= slot, wraps, wraps - W)
+    valid = abs_pos >= 0
+    if kind == LOCAL_ATTN and cfg.sliding_window:
+        valid &= (pos - abs_pos) < cfg.sliding_window
+    else:
+        valid &= abs_pos <= pos
+    mask = valid[None, None, :].expand(B, 1, W)
+    out = _sdpa(q, ck, cv, mask, cfg.attn_softcap)
+    return out.reshape(B, 1, -1) @ p["wo"].to(x.dtype), cache
+
+
+# --------------------------------------------------------------------------
+# MLP (SwiGLU / GELU)
+# --------------------------------------------------------------------------
+def init_mlp(generator, d, d_ff, act="silu", device=None):
+    if act == "silu":  # gated
+        return {"w_gate": dense_init(generator, (d, d_ff), device=device),
+                "w_up": dense_init(generator, (d, d_ff), device=device),
+                "w_down": dense_init(generator, (d_ff, d), device=device)}
+    return {"w_up": dense_init(generator, (d, d_ff), device=device),
+            "w_down": dense_init(generator, (d_ff, d), device=device)}
+
+
+def apply_mlp(p, x):
+    if "w_gate" in p:
+        h = F.silu(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_up"].to(x.dtype))
+    else:  # jax.nn.gelu's default: the tanh approximation
+        h = F.gelu(x @ p["w_up"].to(x.dtype), approximate="tanh")
+    return h @ p["w_down"].to(x.dtype)

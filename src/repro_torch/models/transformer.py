@@ -1,0 +1,253 @@
+"""Decoder LM assembled from the block zoo (the port of
+``repro.models.transformer``: prefill and decode).
+
+Depth handling keeps the reference's parameter layout: the config's
+``block_pattern`` (period P) tiles the depth; ``params["stages"]`` holds
+one dict per pattern position whose leaves are stacked over the R = L // P
+repetitions, and ``params["rest"]`` the remaining L mod P layers.  Where
+the reference runs ``jax.lax.scan`` over the stacked leaves, the port
+loops over R in Python and indexes them as views.  Decode states are
+stacked the same way; ``decode_step`` updates them in place.
+
+Entry points:
+  * ``forward(params, batch, cfg)``            -> (logits, aux) for prefill
+  * ``init_decode_state(cfg, batch, max_len)`` -> stacked caches
+  * ``decode_step(params, state, tokens, pos, cfg)`` -> (logits, state)
+
+The MoE and xLSTM kinds, the audio and vision front ends, the losses and
+rematerialization come with later slices and raise here.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MLSTM, MOE, RECURRENT,
+                                      SLSTM, ModelConfig)
+from repro_torch.models import layers as L
+from repro_torch.models import rglru as rglru_lib
+# one conversion carries any of the reference's parameter trees across
+from repro_torch.tree import params_from_jax  # noqa: F401  (re-export)
+from repro_torch.tree import leaves, tree_map
+
+_LATER = {MOE: "the MoE slice", MLSTM: "the xLSTM slice",
+          SLSTM: "the xLSTM slice"}
+
+
+def _check_kind(kind: str):
+    if kind in _LATER:
+        raise NotImplementedError(f"layer kind {kind!r} comes with "
+                                  f"{_LATER[kind]}")
+    if kind not in (ATTN, LOCAL_ATTN, RECURRENT):
+        raise ValueError(kind)
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _norm_kind(cfg: ModelConfig) -> str:
+    return "rmsnorm" if cfg.causal else "layernorm"
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+def init_layer(generator, cfg: ModelConfig, kind: str, device=None):
+    _check_kind(kind)
+    p: Dict[str, Any] = {"norm1": L.init_norm(cfg.d_model, _norm_kind(cfg),
+                                              device)}
+    if kind == RECURRENT:
+        p["rglru"] = rglru_lib.init_rglru_block(
+            generator, cfg.d_model, cfg.rglru_width, cfg.conv1d_width, device)
+    else:
+        p["attn"] = L.init_attention(generator, cfg, device)
+    if cfg.d_ff:
+        p["norm2"] = L.init_norm(cfg.d_model, _norm_kind(cfg), device)
+        p["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act,
+                              device)
+    return p
+
+
+def _stack(trees):
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def init_model(cfg: ModelConfig, generator=None, device=None) -> Dict[str, Any]:
+    """Random parameters from the reference's distributions, f32.  The
+    numbers differ from jax's; carry the reference's own across with
+    ``params_from_jax`` where they must match."""
+    if cfg.modality_frontend is not None:
+        raise NotImplementedError(f"the {cfg.modality_frontend} front end "
+                                  "comes with its slice")
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    kinds = cfg.layer_kinds
+    P = len(cfg.block_pattern)
+    R = cfg.num_layers // P
+    params: Dict[str, Any] = {
+        "embed": L.dense_init(generator, (cfg.vocab_size, cfg.d_model),
+                              device=device)}
+    params["stages"] = tuple(
+        _stack([init_layer(generator, cfg, kind, device) for _ in range(R)])
+        for kind in cfg.block_pattern)
+    params["rest"] = tuple(init_layer(generator, cfg, kinds[R * P + i], device)
+                           for i in range(cfg.num_layers - R * P))
+    params["final_norm"] = L.init_norm(cfg.d_model, _norm_kind(cfg), device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(generator,
+                                         (cfg.d_model, cfg.vocab_size),
+                                         device=device)
+    return params
+
+
+def param_count(params) -> int:
+    """Number of parameters in a tree (summed ``numel``)."""
+    return sum(t.numel() for t in leaves(params))
+
+
+def _layer(stage, r: int):
+    """Repetition ``r`` of a stacked stage, as views."""
+    return tree_map(lambda t: t[r], stage)
+
+
+def _layers(params, cfg: ModelConfig):
+    """(params, kind) of every layer in depth order."""
+    P = len(cfg.block_pattern)
+    R = cfg.num_layers // P
+    for r in range(R):
+        for j, kind in enumerate(cfg.block_pattern):
+            yield _layer(params["stages"][j], r), kind
+    for i, p in enumerate(params["rest"]):
+        yield p, cfg.layer_kinds[R * P + i]
+
+
+# --------------------------------------------------------------------------
+# layer application (full-sequence)
+# --------------------------------------------------------------------------
+def apply_layer(p, x, cfg: ModelConfig, kind: str, positions):
+    """One pre-norm residual layer over the full sequence."""
+    _check_kind(kind)
+    h = L.apply_norm(p["norm1"], x, cfg.norm_eps)
+    if kind == RECURRENT:
+        h = rglru_lib.rglru_block_forward(p["rglru"], h)
+    else:
+        h = L.attention_forward(p["attn"], h, cfg, kind, positions)
+    x = x + h
+    if cfg.d_ff:
+        x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["norm2"], x, cfg.norm_eps))
+    return x
+
+
+def _embed(params, tokens, cfg: ModelConfig):
+    """Gather, then cast: the same values as the reference's cast-then-
+    gather without casting the whole table."""
+    x = params["embed"][tokens.long()].to(_dtype(cfg))
+    if cfg.tie_embeddings:
+        x = x * (cfg.d_model ** 0.5)  # gemma-style lookup scaling
+    return x
+
+
+def embed_inputs(params, batch, cfg: ModelConfig):
+    """batch keys: tokens (B, S) [+ positions, which must be arange(S)]."""
+    if cfg.modality_frontend is not None:
+        raise NotImplementedError(f"the {cfg.modality_frontend} front end "
+                                  "comes with its slice")
+    x = _embed(params, batch["tokens"], cfg)
+    return x, L.contiguous_positions(batch.get("positions"), x.shape[1],
+                                     x.device)
+
+
+def unembed(params, x, cfg: ModelConfig, normed: bool = False):
+    h = x if normed else L.apply_norm(params["final_norm"], x, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = h @ params["embed"].to(h.dtype).T
+    else:
+        logits = h @ params["lm_head"].to(h.dtype)
+    if cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    return logits
+
+
+def forward_hidden(params, batch, cfg: ModelConfig):
+    """Full-sequence forward up to the final norm'd hidden states -> (h,
+    aux_loss).  The aux loss is the MoE router's, so 0 for every kind the
+    port runs."""
+    x, positions = embed_inputs(params, batch, cfg)
+    for p, kind in _layers(params, cfg):
+        x = apply_layer(p, x, cfg, kind, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return L.apply_norm(params["final_norm"], x, cfg.norm_eps), aux
+
+
+def forward(params, batch, cfg: ModelConfig):
+    """Full-sequence forward -> (logits (B, S, V), aux_loss)."""
+    h, aux = forward_hidden(params, batch, cfg)
+    return unembed(params, h, cfg, normed=True), aux
+
+
+# --------------------------------------------------------------------------
+# decode
+# --------------------------------------------------------------------------
+def _init_layer_state(cfg, kind, batch, max_len, dtype, device):
+    _check_kind(kind)
+    if kind == RECURRENT:
+        return rglru_lib.init_rglru_state(cfg, batch, dtype, device)
+    return L.init_kv_cache(cfg, kind, batch, max_len, dtype, device)
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      dtype=None, device=None) -> Dict[str, Any]:
+    device = resolve_device(device)
+    dtype = dtype or _dtype(cfg)
+    P = len(cfg.block_pattern)
+    R = cfg.num_layers // P
+    stages = tuple(
+        tree_map(lambda a: a.new_zeros((R,) + a.shape),
+                 _init_layer_state(cfg, kind, batch, max_len, dtype, device))
+        for kind in cfg.block_pattern)
+    kinds = cfg.layer_kinds
+    rest = tuple(_init_layer_state(cfg, kinds[R * P + i], batch, max_len,
+                                   dtype, device)
+                 for i in range(cfg.num_layers - R * P))
+    return {"stages": stages, "rest": rest}
+
+
+def apply_layer_decode(p, x, state, pos: int, cfg: ModelConfig, kind: str):
+    """One layer, one token -> (x, new state).  A KV cache is written in
+    place; the recurrent state comes back as new tensors."""
+    _check_kind(kind)
+    h = L.apply_norm(p["norm1"], x, cfg.norm_eps)
+    if kind == RECURRENT:
+        h, state = rglru_lib.rglru_block_decode(p["rglru"], h, state)
+    else:
+        h, state = L.attention_decode(p["attn"], h, state, pos, cfg, kind)
+    x = x + h
+    if cfg.d_ff:
+        x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["norm2"], x, cfg.norm_eps))
+    return x, state
+
+
+def _layer_states(state, cfg: ModelConfig):
+    """Every layer's state, in depth order, as views of the stacked one."""
+    P = len(cfg.block_pattern)
+    R = cfg.num_layers // P
+    for r in range(R):
+        for j in range(P):
+            yield _layer(state["stages"][j], r)
+    yield from state["rest"]
+
+
+def decode_step(params, state, tokens, pos: int, cfg: ModelConfig):
+    """One decode step.  tokens: (B,) integer tensor; pos: int.  Returns
+    (logits (B, V), state), the state updated in place."""
+    x = _embed(params, tokens, cfg)[:, None]                    # (B, 1, d)
+    for (p, kind), st in zip(_layers(params, cfg), _layer_states(state, cfg)):
+        x, new = apply_layer_decode(p, x, st, pos, cfg, kind)
+        for name, t in new.items():
+            if t is not st[name]:
+                st[name].copy_(t)
+    return unembed(params, x, cfg)[:, 0], state

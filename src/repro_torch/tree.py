@@ -9,6 +9,11 @@ from __future__ import annotations
 
 from typing import Any, Callable, List
 
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
 
 def leaves(tree) -> List[Any]:
     if tree is None:
@@ -48,3 +53,11 @@ def tree_map(fn: Callable, tree, *rest) -> Any:
     if any(len(c) != len(cols[0]) for c in cols):
         raise ValueError("trees differ in their number of leaves")
     return unflatten(tree, [fn(*xs) for xs in zip(*cols)])
+
+
+def params_from_jax(tree, device=None) -> Any:
+    """A parameter tree of the reference (numpy arrays, or anything
+    ``np.asarray`` takes), same layout, as tensors on ``device``."""
+    device = resolve_device(device)
+    return tree_map(lambda a: torch.tensor(np.asarray(a), device=device),
+                    tree)

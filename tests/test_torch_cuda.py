@@ -7,7 +7,9 @@ inside the ``card`` fixture, never at import).  On a GPU machine:
 
 Edge shapes the full-width smoke run does not reach: ragged segments,
 k > seg, empty and invalid pending ids, no candidates, a reservoir that
-spans several compaction tiles, more candidates than one block has threads.
+spans several compaction tiles, more candidates than one block has threads;
+for the LM path, head dims 32-256, MQA/GQA, windows, softcaps, Skv > Sq,
+ragged lengths, f32 and bf16, and the reduced models against the CPU.
 """
 import numpy as np
 import pytest
@@ -209,3 +211,103 @@ def test_fleet_ledger_on_the_card_hashes_through_the_kernel(card,
     assert all(torch.equal(x, y) for x, y in zip(gpu[5], cpu[5]))
     for x, y in zip(gpu[6][0] + gpu[6][1], cpu[6][0] + cpu[6][1]):
         np.testing.assert_array_equal(x, y)
+
+
+# ------------------------------------------------------ the LM serving path --
+FLASH_CARD_CASES = [
+    # B, Hq, Hkv, Sq, Skv, hd, causal, window, softcap
+    (2, 4, 4, 128, 128, 32, True, 0, 0.0),
+    (1, 8, 2, 128, 128, 64, True, 0, 0.0),         # GQA 4:1
+    (2, 10, 1, 300, 300, 256, True, 64, 0.0),      # MQA, window, ragged
+    (1, 4, 2, 100, 333, 64, True, 0, 50.0),        # softcap, Skv > Sq
+    (1, 4, 4, 77, 77, 128, False, 0, 0.0),         # bidirectional, ragged
+    (1, 8, 4, 256, 256, 256, True, 0, 50.0),       # gemma2: global, softcap
+    (2, 2, 1, 1, 40, 32, True, 16, 0.0),           # one query, window
+]
+
+
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 2e-5, 2e-5),
+                                             (torch.bfloat16, 1e-2, 4e-3)])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,hd,causal,window,softcap",
+                         FLASH_CARD_CASES)
+def test_flash_attention_kernel(card, B, Hq, Hkv, Sq, Skv, hd, causal,
+                                window, softcap, dtype, rtol, atol):
+    """Layer layout (B, S, H, hd) through ``ops``: the kernel reads the
+    transposed views in place.  f32 within 2e-5 of the plain version (the
+    order of the f32 sums differs); bf16 outputs within one rounding (a
+    bf16 ulp is at most 2**-7 of the value) plus 4e-3."""
+    g = torch.Generator(device=card).manual_seed(Sq * 31 + Skv + hd)
+    q = torch.randn((B, Sq, Hq, hd), generator=g, device=card).to(dtype)
+    k = torch.randn((B, Skv, Hkv, hd), generator=g, device=card).to(dtype)
+    v = torch.randn((B, Skv, Hkv, hd), generator=g, device=card).to(dtype)
+    before = LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=softcap)
+    assert LAUNCHES["flash_attention"] == before + 1
+    torch.cuda.synchronize()
+    want = ref.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal, window,
+                               softcap).transpose(1, 2)
+    assert got.shape == want.shape and got.dtype == dtype
+    assert got.is_contiguous()
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+def test_flash_attention_kernel_refuses(card):
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.zeros((1, 2, 8, 48), device=card)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros((1, 2, 8, 32), device=card)
+    with pytest.raises(ValueError, match="Skv"):
+        fa.flash_attention(q, q[:, :, :4], q[:, :, :4])
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        fa.flash_attention(q.half(), q.half(), q.half())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,w", [(2, 128, 64), (1, 257, 130), (3, 64, 32),
+                                   (1, 1, 5), (2, 4096, 256)])
+def test_rglru_scan_kernel(card, B, S, w, dtype):
+    """Bit-exact against the plain version: the same f32 product and sum,
+    rounded the same way, in the same order; ragged S and w."""
+    g = torch.Generator(device=card).manual_seed(B * S + w)
+    a = torch.sigmoid(torch.randn((B, S, w), generator=g, device=card)
+                      ).to(dtype)
+    b = (torch.randn((B, S, w), generator=g, device=card) * 0.1).to(dtype)
+    before = LAUNCHES["rglru_scan"]
+    got = ops.rglru_scan(a, b)
+    assert LAUNCHES["rglru_scan"] == before + 1
+    want = ref.rglru_scan(a, b)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("arch,changes", [
+    ("recurrentgemma-2b", {}), ("gemma2-2b", {"num_kv_heads": 2})])
+def test_reduced_model_on_the_card_matches_the_cpu(card, arch, changes):
+    """The same weights on the card (kernels) and on the CPU (plain
+    versions, held against JAX by ``tests/test_torch_lm.py``): prefill
+    logits within 1e-4 (f32 sums in another order) and identical greedy
+    completions."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests, serve
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
+    cpu = T.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu = tree_map(lambda t: t.to(card), cpu)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 128)))
+    LAUNCHES["flash_attention"] = LAUNCHES["rglru_scan"] = 0
+    got, _ = T.forward(gpu, {"tokens": toks.to(card)}, cfg)
+    kinds = cfg.layer_kinds
+    assert LAUNCHES["flash_attention"] == sum(k != "rglru" for k in kinds)
+    assert LAUNCHES["rglru_scan"] == sum(k == "rglru" for k in kinds)
+    want, _ = T.forward(cpu, {"tokens": toks}, cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    reqs = make_requests(4, 12, cfg.vocab_size, seed=0)
+    a, _ = serve(cfg, reqs, batch=2, gen=8, params=gpu, device=card)
+    b, _ = serve(cfg, reqs, batch=2, gen=8, params=cpu, device="cpu")
+    assert a == b

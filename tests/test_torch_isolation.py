@@ -32,7 +32,10 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
               "repro_torch.core.sharded_checkpoint",
               "repro_torch.launch.shard_server",
               "repro_torch.analysis.protocol.spec",
-              "repro_torch.kernels.row_hash"):
+              "repro_torch.kernels.row_hash",
+              "repro_torch.models.transformer", "repro_torch.launch.serve",
+              "repro_torch.kernels.flash_attention",
+              "repro_torch.kernels.rglru_scan"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
