@@ -5,10 +5,15 @@
 Phases (any failure exits non-zero; no phase catches its own failure):
 
 1. The card (``nvidia-smi`` name and power limit) and the kernel build:
-   every ``src/repro_torch/csrc/*.cu`` compiled by ``nvcc`` for sm_90a.
+   every ``src/repro_torch/csrc/*.cu`` compiled by ``nvcc`` for sm_90a,
+   each kernel's registers and spills, and the count of tensor-core
+   (HGMMA) instructions in the bf16 ``flash_attention``'s SASS (0 fails).
 2. Each kernel against its plain PyTorch version at the shapes of the
    DLRM main path (largest Criteo-Kaggle table: N = 10,131,227, d = 16,
-   B = 512), with its time (CUDA events, median of 25 after warm-up), the
+   B = 512; ``embedding_bag`` as one table and, the path's own call, over
+   all 26 unscaled tables with ``sparse`` (512, 26, 1), one launch each
+   way, beside the kernel's own device time from ``torch.profiler``), with
+   its time (CUDA events, median of 25 after warm-up), the
    plain version's time, its bound (the bytes this run's inputs need over
    3.35 TB/s, or operations over the f32 peak, whichever is larger) and,
    where one PyTorch call computes the same function, that call's time.
@@ -24,7 +29,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    steps), then on the sharded writer fleet (STEPS_FLEET steps; 8 shards,
    ``transport="inproc"``, delta saves with the ``row_hash`` kernel
    ledger).  Launch counts are reset just before each run and read just
-   after; the priority modes must restore from the fleet.
+   after; every train step launches ``embedding_bag`` once forward and
+   once backward (evaluation adds one forward per batch); the priority
+   modes must restore from the fleet.
 4. The output checked against a reference on a small input: the scaled
    config trained on the card and on the CPU (the CPU path is held against
    the JAX reference by the tests) from the same parameters gives the same
@@ -50,8 +57,8 @@ freed first):
    4096, 256) global with softcap 50, the reduced f32 case; the scan at
    (2, 4096, 2560) f32 and bf16 (bit for bit).  bf16 attention outputs
    must agree within 1e-2 * |plain| + 4e-3 (one bf16 rounding and some),
-   and the plain version with its window one key tile short must fall
-   outside that limit.  Bounds: the unmasked band's flops over the peak
+   and the plain version with its window one key tile (64) short must
+   fall outside that limit.  Bounds: the unmasked band's flops over the peak
    of the dtype's arithmetic (bf16 tensor cores, f32 FMA) or the bytes,
    whichever is larger; library time: ``F.scaled_dot_product_attention``
    with the band as its mask where there is no softcap.
@@ -114,7 +121,7 @@ FLASH_CASES = (
      (1e-2, 4e-3)),
     ("recurrentgemma-2b reduced", (2, 4, 1, 128, 64), torch.float32, 64, 0.0,
      (0.0, 2e-5)))
-KEY_TILE = 32                # keys per tile of csrc/flash_attention.cu
+KEY_TILE = 64                # keys per tile of csrc/flash_attention_bf16.cu
 SCAN_SHAPE = (2, 4096, 2560)  # the RG-LRU layers' (B, S, width) at prefill
 SCRATCH = Path(__file__).resolve().parent / "build" / "chip_smoke"
 PROBE_ENV = "CHIP_SMOKE_WRITER_PROBE_DIR"
@@ -153,6 +160,147 @@ def zipf_ids(rng, n_rows, shape):
     return perm[ranks].astype(np.int32)
 
 
+def time_pair_ms(fn_a, fn_b, reps: int = 101, warmup: int = 5):
+    """``time_ms`` of two calls taken in turns (a, b, b, a, ...), so that
+    host-bound calls meet the same host: the medians of each."""
+    for _ in range(warmup):
+        fn_a()
+        fn_b()
+    torch.cuda.synchronize()
+    times = ([], [])
+    for i in range(reps):
+        for j in ((0, 1) if i % 2 == 0 else (1, 0)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            (fn_a, fn_b)[j]()
+            end.record()
+            end.synchronize()
+            times[j].append(start.elapsed_time(end))
+    return statistics.median(times[0]), statistics.median(times[1])
+
+
+def device_ms(fn, kernel: str, reps: int = 10):
+    """(the named kernel's, all kernels') device time per call of ``fn``
+    under ``torch.profiler``, or (None, None) where the profiler saw no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    own = sum(e.device_time_total for e in events if kernel in e.key)
+    every = sum(e.device_time_total for e in events)
+    if not every:
+        return None, None
+    return own / reps / 1e3, every / reps / 1e3
+
+
+def print_embedding_times(name, kernel, library, kernel_name):
+    """CUDA-event ms of the wrapper and the library call (in turns, the
+    median of 101 each: both are host-bound), beside the kernel's own
+    device ms from the profiler: the rest is host latency."""
+    ms, lib_ms = time_pair_ms(kernel, library)
+    own, every = device_ms(kernel, kernel_name)
+    print(f"{name}: ms={ms:.4f} (CUDA events) kernel device ms="
+          f"{'not measured' if own is None else f'{own:.4f}'} (profiler; "
+          f"all the call's kernels "
+          f"{'not measured' if every is None else f'{every:.4f}'}) "
+          f"library_ms={lib_ms:.4f}")
+    return ms, lib_ms
+
+
+def embedding_launches():
+    """A function giving the (forward, backward) embedding_bag launches
+    since this call."""
+    from repro_torch.kernels import LAUNCHES
+    names = ("embedding_bag", "embedding_bag_backward")
+    before = [LAUNCHES[n] for n in names]
+    return lambda: tuple(LAUNCHES[n] - b for n, b in zip(names, before))
+
+
+def phase_embedding_bags(dev, eb, ref, rng, gen):
+    """The fused embedding kernels at the main path's shape: the 26
+    unscaled Criteo-Kaggle tables (33,762,577 rows, d = 16, f32) and
+    ``sparse`` (512, 26, 1) of Zipf ids, one launch each way.  Library
+    yardstick: one ``F.embedding_bag`` (one ``embedding_dense_backward``)
+    over a concatenated copy of the tables with offset ids, built outside
+    the timed region and never used by the port."""
+    import torch.nn.functional as F
+    from repro_torch.configs.dlrm import DLRM_KAGGLE
+    sizes = DLRM_KAGGLE.table_sizes
+    T, hot = len(sizes), 1
+    tables = [torch.rand((n, D), generator=gen, device=dev) - 0.5
+              for n in sizes]
+    sparse = torch.from_numpy(np.stack(
+        [zipf_ids(rng, n, (B, hot)) for n in sizes], axis=1)).to(dev)
+    launches = embedding_launches()
+    got = eb.forward(tables, sparse)
+    if launches() != (1, 0):
+        fail(f"embedding_bag over {T} tables took {launches()} launches")
+    want = ref.embedding_bags(tables, sparse)
+    err = (got - want).abs().max().item()
+    ok = err <= 1e-6 * max(want.abs().max().item(), 1.0)
+    print(f"embedding_bag {T} tables {tuple(sparse.shape)} f32: one launch, "
+          f"max_abs_err={err:.3e} tol=1e-6 ok={ok}")
+    if not ok:
+        fail(f"embedding_bag over {T} tables disagrees with its plain version")
+    grad_out = torch.randn((B, T, D), generator=gen, device=dev) * 1e-2
+    launches = embedding_launches()
+    got_g = eb.backward(grad_out, sparse, list(sizes))
+    if launches() != (0, 1):
+        fail(f"embedding_bag_backward over {T} tables took {launches()} "
+             f"launches")
+    want_g = ref.embedding_bags_backward(grad_out, sparse, sizes)
+    err_g = max((a - b).abs().max().item() for a, b in zip(got_g, want_g))
+    scale_g = max(b.abs().max().item() for b in want_g)
+    ok = err_g <= 1e-5 * max(scale_g, 1.0)
+    print(f"embedding_bag_backward {T} tables: one launch, "
+          f"max_abs_err={err_g:.3e} tol=1e-5 (relative to the largest "
+          f"gradient) ok={ok}")
+    if not ok:
+        fail(f"embedding_bag_backward over {T} tables disagrees with its "
+             f"plain version")
+    del got, want, got_g, want_g
+
+    starts = np.cumsum((0,) + tuple(sizes[:-1]))
+    cat = torch.cat(tables)                       # the library's copy
+    flat = (sparse.long() + torch.as_tensor(starts, device=dev)[None, :, None]
+            ).reshape(-1)
+    offsets = torch.arange(0, B * T * hot, hot, device=dev)
+    n_rows = sum(sizes)
+    rows = {}
+    ms, lib_ms = print_embedding_times(
+        f"embedding_bag {T} tables", lambda: eb.forward(tables, sparse),
+        lambda: F.embedding_bag(flat, cat, offsets, mode="sum"),
+        "embedding_bags_fwd")
+    t_b, by = bound(B * T * hot * (D * 4 + 4) + B * T * D * 4,
+                    ops=B * T * hot * D)
+    rows["embedding_bag"] = dict(
+        max_abs_err=err, ms=ms,
+        plain_ms=time_ms(lambda: ref.embedding_bags(tables, sparse)),
+        bound_ms=t_b, bound_by=by, library_ms=lib_ms)
+    ms, lib_ms = print_embedding_times(
+        f"embedding_bag_backward {T} tables",
+        lambda: eb.backward(grad_out, sparse, sizes),
+        lambda: torch.ops.aten.embedding_dense_backward(
+            grad_out.reshape(-1, D), flat, n_rows, -1, False),
+        "embedding_bags_bwd")
+    t_b, by = bound(B * T * (D * 4 + hot * 4) + n_rows * D * 4,
+                    ops=B * T * hot * D)
+    rows["embedding_bag_backward"] = dict(
+        max_abs_err=err_g, ms=ms,
+        plain_ms=time_ms(lambda: ref.embedding_bags_backward(
+            grad_out, sparse, sizes)),
+        bound_ms=t_b, bound_by=by, library_ms=lib_ms)
+    del tables, cat
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_kernels(dev, eb, ts, sd, ref):
     """Each kernel vs its plain version at the path's shapes."""
     import torch.nn.functional as F
@@ -160,58 +308,53 @@ def phase_kernels(dev, eb, ts, sd, ref):
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {}
 
-    # ---- embedding_bag forward (f32, bf16; hot 1 and 3) and backward ----
+    # ---- embedding_bag, one table (T = 1, the largest): forward (f32,
+    # bf16; hot 1 and 3) and backward, against the plain version ----
     table = torch.rand((N_BIG, D), generator=gen, device=dev) - 0.5
     for hot in (1, 3):
         idx = torch.from_numpy(zipf_ids(rng, N_BIG, (B, hot))).to(dev)
+        sp = idx[:, None]
         for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2e-2)):
             tab = table.to(dtype)
-            got = eb.forward(tab, idx).float()
+            got = eb.forward([tab], sp)[:, 0].float()
             want = ref.embedding_bag(tab, idx).float()
             err = (got - want).abs().max().item()
-            scale = want.abs().max().item()
-            ok = err <= tol * max(scale, 1.0)
-            print(f"embedding_bag hot={hot} {str(dtype)[6:]}: "
+            ok = err <= tol * max(want.abs().max().item(), 1.0)
+            print(f"embedding_bag one table hot={hot} {str(dtype)[6:]}: "
                   f"max_abs_err={err:.3e} tol={tol:g} ok={ok}")
             if not ok:
                 fail("embedding_bag disagrees with its plain version")
             if hot == 1 and dtype == torch.float32:
-                itemsize = tab.element_size()
-                t_b, by = bound(B * hot * D * itemsize + B * hot * 4 +
-                                B * D * itemsize, ops=B * hot * D)
                 flat = idx.reshape(-1).long()
                 offsets = torch.arange(0, B * hot, hot, device=dev)
-                rows["embedding_bag"] = dict(
-                    max_abs_err=err,
-                    ms=time_ms(lambda: eb.forward(tab, idx)),
-                    plain_ms=time_ms(lambda: ref.embedding_bag(tab, idx)),
-                    bound_ms=t_b, bound_by=by,
-                    library_ms=time_ms(lambda: F.embedding_bag(
-                        flat, tab, offsets, mode="sum")))
-        grad_out = (torch.randn((B, D), generator=gen, device=dev) * 1e-2)
-        got = eb.backward(grad_out, idx, N_BIG)
-        want = ref.embedding_bag_backward(grad_out, idx, N_BIG)
+                print_embedding_times(
+                    "embedding_bag one table hot=1 f32",
+                    lambda: eb.forward([tab], sp),
+                    lambda: F.embedding_bag(flat, tab, offsets, mode="sum"),
+                    "embedding_bags_fwd")
+        grad_out = (torch.randn((B, 1, D), generator=gen, device=dev) * 1e-2)
+        got = eb.backward(grad_out, sp, [N_BIG])[0]
+        want = ref.embedding_bag_backward(grad_out[:, 0], idx, N_BIG)
         err = (got - want).abs().max().item()
         # atomic adds land in run-dependent order on repeated (Zipf) ids:
         # f32 rounding of sums of up to B*hot terms
         ok = err <= 1e-5 * max(want.abs().max().item(), 1.0)
-        print(f"embedding_bag_backward hot={hot}: max_abs_err={err:.3e} "
-              f"tol=1e-5 (relative to the largest gradient) ok={ok}")
+        print(f"embedding_bag_backward one table hot={hot}: "
+              f"max_abs_err={err:.3e} tol=1e-5 (relative to the largest "
+              f"gradient) ok={ok}")
         if not ok:
             fail("embedding_bag backward disagrees with its plain version")
         if hot == 1:
-            t_b, by = bound(B * D * 4 + B * hot * 4 + N_BIG * D * 4,
-                            ops=B * hot * D)
             flat = idx.reshape(-1).long()
-            rows["embedding_bag_backward"] = dict(
-                max_abs_err=err,
-                ms=time_ms(lambda: eb.backward(grad_out, idx, N_BIG)),
-                plain_ms=time_ms(lambda: ref.embedding_bag_backward(
-                    grad_out, idx, N_BIG)),
-                bound_ms=t_b, bound_by=by,
-                library_ms=time_ms(lambda: torch.ops.aten.embedding_dense_backward(
-                    grad_out, flat, N_BIG, -1, False)))
-    del table
+            print_embedding_times(
+                "embedding_bag_backward one table hot=1",
+                lambda: eb.backward(grad_out, sp, [N_BIG]),
+                lambda: torch.ops.aten.embedding_dense_backward(
+                    grad_out[:, 0], flat, N_BIG, -1, False),
+                "embedding_bags_bwd")
+    del table, tab
+    torch.cuda.empty_cache()
+    rows.update(phase_embedding_bags(dev, eb, ref, rng, gen))
 
     # ---- tracker_select: Zipf-skewed counters (massive ties), seg 512, k 64
     counts = torch.from_numpy(np.minimum(rng.zipf(1.2, N_BIG) - 1, 1000)
@@ -372,6 +515,8 @@ def phase_main_path(dev, kernels, cfg, num_samples=40_000):
                           "tracker_select"},
               "cpr-ssu": {"embedding_bag", "embedding_bag_backward",
                           "ssu_dedupe_evict"}}
+    (_, _), (ev0, ev1) = ds.eval_split(0.1)       # Emulator's eval_frac
+    n_eval = sum(1 for _ in ds.batches(4096, ev0, ev1))
     totals = {name: 0 for name in kernels.LAUNCHES}
     for store, fleet, steps in (("flat", {}, STEPS_FLAT),
                                 ("fleet", FLEET, STEPS_FLEET)):
@@ -403,6 +548,16 @@ def phase_main_path(dev, kernels, cfg, num_samples=40_000):
             missing = [n for n in must if counts[n] == 0]
             if missing:
                 fail(f"{store} {mode}: kernels {missing} were never launched")
+            # one fused launch each way per train step, one forward per
+            # evaluation batch
+            per_step = ((counts["embedding_bag"] - n_eval) / res.n_steps,
+                        counts["embedding_bag_backward"] / res.n_steps)
+            print(f"  {store} {mode}: embedding_bag launches per train step "
+                  f"(forward, backward) = {per_step}, plus {n_eval} for "
+                  f"evaluation")
+            if per_step != (1, 1):
+                fail(f"{store} {mode}: embedding_bag launched {per_step} "
+                     f"times per train step, not once each way")
             if not math.isfinite(res.final_loss) or not math.isfinite(res.auc):
                 fail(f"{store} {mode}: loss or AUC is not finite")
             if fleet and not (rep["sharded_save"] and
@@ -838,6 +993,14 @@ def main() -> None:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {log.stem}: {line.strip()}")
+    lib = out_dir / "libflash_attention_bf16.so"
+    sass = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"),
+                           "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    n_hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    print(f"  {lib.name}: {n_hgmma} HGMMA (wgmma) instructions in its SASS")
+    if not n_hgmma:
+        fail("the bf16 flash_attention kernel has no tensor-core instructions")
 
     rows = phase_kernels(dev, eb, ts, sd, ref)
     rows["row_hash"] = phase_row_hash(dev, rh, ref)
@@ -862,7 +1025,7 @@ def main() -> None:
                "tracker_select": "tracker_select.cu",
                "ssu_dedupe_evict": "ssu_dedupe.cu",
                "row_hash": "row_hash.cu",
-               "flash_attention": "flash_attention.cu",
+               "flash_attention": "flash_attention_bf16.cu",
                "rglru_scan": "rglru_scan.cu"}
     replaces = {"embedding_bag": "src/repro/kernels/embedding_bag.py:44",
                 "embedding_bag_backward": "src/repro/models/dlrm.py:82",

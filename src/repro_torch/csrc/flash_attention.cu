@@ -1,6 +1,8 @@
-// Flash attention (forward) for Hopper (sm_90a): online softmax over key
-// tiles with causal / sliding-window masks, the gemma2 logit softcap and
-// GQA/MQA (kv head = h / group), queries right-aligned to the KV tail.
+// Flash attention (forward), f32, for Hopper (sm_90a): online softmax over
+// key tiles with causal / sliding-window masks, the gemma2 logit softcap
+// and GQA/MQA (kv head = h / group), queries right-aligned to the KV tail.
+// bf16 inputs go to the tensor-core kernel of flash_attention_bf16.cu; f32
+// stays on the CUDA cores, so its products are f32 FMAs (no TF32).
 //
 // Replaces: src/repro/kernels/flash_attention.py, function flash_attention
 // (the Pallas kernel: grid (B, Hq, Sq/bq, Skv/bk), the running (m, l, acc)
@@ -24,16 +26,14 @@
 // tile and each warp 8 query rows: a row's softmax statistics are a warp
 // reduction.  In P.V each lane owns hd/32 output columns of the warp's 8
 // rows, so the (8 x hd) f32 accumulator stays in registers.  Products are
-// f32 FMAs on the CUDA cores (no tensor cores yet), for bf16 inputs too.
+// f32 FMAs on the CUDA cores.
 //
 // Bound on this card: operations.  The unmasked band of (query, key)
 // pairs needs 4 * hd flops each (Q.K^T and P.V); at the RecurrentGemma-2B
 // prefill shape that is 128.9 GFLOP, 1.93 ms at the f32 FMA peak
-// (67 TFLOP/s) and 0.130 ms at the bf16 tensor-core peak; this kernel's
-// ceiling is the FMA one.  Shared memory bandwidth: Q.K^T issues one
-// conflict-free 16-byte K load and 8 broadcast Q loads per 32 FMAs.
+// (67 TFLOP/s).  Shared memory bandwidth: Q.K^T issues one conflict-free
+// 16-byte K load and 8 broadcast Q loads per 32 FMAs.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -49,27 +49,14 @@ struct Strides {  // element strides of (batch, head, seq); hd is contiguous
   long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
 };
 
-// One 16-byte load as f32 values (4 f32, or 8 bf16 little-endian: element
-// 2j is the low half of word j; a bf16 is the top half of an f32).
+// One 16-byte load as 4 f32 values.
 __device__ __forceinline__ void unpack(const uint4& w, float* out, float) {
   out[0] = __uint_as_float(w.x);
   out[1] = __uint_as_float(w.y);
   out[2] = __uint_as_float(w.z);
   out[3] = __uint_as_float(w.w);
 }
-__device__ __forceinline__ void unpack(const uint4& w, float* out,
-                                       __nv_bfloat16) {
-  const unsigned words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    out[2 * j] = __uint_as_float(words[j] << 16);
-    out[2 * j + 1] = __uint_as_float(words[j] & 0xffff0000u);
-  }
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // rows x HD elements (row stride `stride`) -> shared f32 [rows][LD], each
 // times `mul`; rows at or past `valid` are zero-filled.  16-byte loads.
@@ -303,15 +290,15 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// q (B, Hq, Sq, hd), k/v (B, Hkv, Skv, hd), o like q, each addressed by
-// the 12 element strides in `strides` (q, k, v, o; batch, head, seq);
-// hd in {32, 64, 128, 256} is contiguous; every pointer and stride is a
-// multiple of 16 bytes.  bf16 != 0: all four are bf16, else f32.
-// Returns a cudaError_t code (0 on success).
+// q (B, Hq, Sq, hd), k/v (B, Hkv, Skv, hd), o like q, all f32, each
+// addressed by the 12 element strides in `strides` (q, k, v, o; batch,
+// head, seq); hd in {32, 64, 128, 256} is contiguous; every pointer and
+// stride is a multiple of 16 bytes.  Returns a cudaError_t code (0 on
+// success).
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         void* o, const long long* strides, int B, int Hq,
-                        int Hkv, int Sq, int Skv, int hd, int bf16,
-                        float scale, int causal, int window, float softcap,
+                        int Hkv, int Sq, int Skv, int hd, float scale,
+                        int causal, int window, float softcap,
                         void* stream) {
   if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || Skv < Sq) return (int)cudaErrorInvalidValue;
@@ -320,10 +307,6 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                    x[6], x[7], x[8], x[9], x[10], x[11]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int group = Hq / Hkv;
-  if (bf16) {
-    return dispatch<__nv_bfloat16>(hd, q, k, v, o, st, B, Hq, group, Sq, Skv,
-                                   scale, causal, window, softcap, s);
-  }
   return dispatch<float>(hd, q, k, v, o, st, B, Hq, group, Sq, Skv, scale,
                          causal, window, softcap, s);
 }

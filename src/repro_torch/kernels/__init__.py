@@ -52,4 +52,5 @@ def check_launch(rc: int, name: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on ``t``'s device."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

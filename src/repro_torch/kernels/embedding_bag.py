@@ -1,108 +1,112 @@
-"""Embedding bag (gather + sum-pool) on Hopper, with a backward kernel.
+"""Embedding bags (gather + sum-pool) over all of a model's tables at once,
+on Hopper, with a backward kernel.
 
 Replaces ``repro.kernels.embedding_bag.embedding_bag`` (Pallas, forward
-only); the CUDA source is ``csrc/embedding_bag.cu``, which says what bounds
-it.  ``EmbeddingBag`` is the autograd function the model calls: on CUDA
-tensors its forward and backward launch the kernels, on CPU tensors they
-run the plain versions in ``ref``.
+only, one table a call); the CUDA source is ``csrc/embedding_bag.cu``,
+which says what bounds it.  ``EmbeddingBags`` is the autograd function the
+model calls: on CUDA tensors its forward and its backward are one launch
+each for every table, on CPU tensors they run the plain versions in
+``ref``.  A single table is the T = 1 case.
 
-The backward returns a **dense** (N, d) gradient, as the reference's XLA
-gradient of ``jnp.sum(table[idx], 1)`` does, so rowwise Adagrad sees the
-same gradient either way.
+The backward returns a **dense** (N_t, d) gradient per table, as the
+reference's XLA gradient of ``jnp.sum(table[idx], 1)`` does, so rowwise
+Adagrad sees the same gradient either way.  The T gradients are views of
+one zeroed allocation.
+
+The kernels' work is a few microseconds, so a call costs what its host
+path costs: the checks of every table, the allocation and the launch run
+in the C++ module ``csrc/embedding_bag_host.cpp``, which takes the list of
+tables in one crossing and calls the CUDA launchers whose addresses it was
+given once.  The tables' pointers and row counts go to the kernel by
+value; nothing is cached across calls.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from repro_torch.kernels import (LAUNCHES, _build, check_launch, on_card,
-                                 ref, require, stream_of)
+from repro_torch.kernels import (LAUNCHES, _build, on_card, ref, require,
+                                 stream_of)
 
-# (in, idx, out, n_rows, batch, hot, d, stream) -> CUDA error code
-_ARGS = (_build.P, _build.P, _build.P, _build.LL, _build.I, _build.I,
-         _build.I, _build.P)
-_SIGS = {fn: (_build.I, _ARGS) for fn in (
-    "embedding_bag_fwd_f32", "embedding_bag_fwd_bf16", "embedding_bag_bwd_f32")}
+_host = None
 
 
-def _lib():
-    return _build.load("embedding_bag", _SIGS)
+def _module():
+    """The C++ host module, bound to the CUDA launchers (first use)."""
+    global _host
+    if _host is None:
+        lib = _build.load("embedding_bag", {})
+        host = _build.load_module("embedding_bag_host")
+        host.bind(*(ctypes.cast(getattr(lib, fn), ctypes.c_void_p).value
+                    for fn in ("embedding_bags_fwd_launch",
+                               "embedding_bags_bwd_launch")))
+        _host = host
+    return _host
 
 
-def _check_idx(idx, device):
-    require(idx.device == device, "idx must lie on the table's device")
-    require(idx.dtype == torch.int32, f"idx must be int32, got {idx.dtype}")
-    require(idx.dim() == 2 and idx.is_contiguous(),
-            "idx must be a contiguous (B, hot) tensor")
+def _launch(dev: int, fn, *args):
+    if dev == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(dev):
+        return fn(*args)
 
 
-def forward(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Kernel launch: table (N, d) f32/bf16, idx (B, hot) int32 -> (B, d)."""
-    require(table.is_cuda, "forward launches a CUDA kernel: table must be "
-            "on a CUDA device")
-    require(table.dtype in (torch.float32, torch.bfloat16),
-            f"table must be float32 or bfloat16, got {table.dtype}")
-    require(table.dim() == 2 and table.is_contiguous(),
-            "table must be a contiguous (N, d) tensor")
-    _check_idx(idx, table.device)
-    N, d = table.shape
-    B, hot = idx.shape
-    require(d * table.element_size() % 16 == 0 and table.data_ptr() % 16 == 0,
-            "table rows must be whole 16-byte chunks, 16-byte aligned")
-    out = torch.empty((B, d), dtype=table.dtype, device=table.device)
-    fn = (_lib().embedding_bag_fwd_f32 if table.dtype == torch.float32
-          else _lib().embedding_bag_fwd_bf16)
-    with torch.cuda.device(table.device):
-        rc = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(), N, B, hot,
-                d, stream_of(table))
-    check_launch(rc, "embedding_bag")
+def forward(tables, sparse: torch.Tensor) -> torch.Tensor:
+    """Kernel launch: T <= 64 tables (N_t, d) f32 or bf16, one dtype and
+    d, contiguous, on one CUDA device; ``sparse`` (B, T, hot) int32,
+    contiguous -> (B, T, d).  Raises ValueError on anything else."""
+    require(len(tables) > 0 and tables[0].is_cuda, "forward launches a "
+            "CUDA kernel: the tables must be on a CUDA device")
+    first = tables[0]
+    out = _launch(first.get_device(), _module().forward, tables, sparse,
+                  stream_of(first))
     LAUNCHES["embedding_bag"] += 1
     return out
 
 
-def backward(grad_out: torch.Tensor, idx: torch.Tensor,
-             n_rows: int) -> torch.Tensor:
-    """Kernel launch: dense (n_rows, d) f32 table gradient from grad_out
-    (B, d) f32, by atomic adds into a zeroed buffer."""
+def _fits(g: torch.Tensor) -> bool:
+    """(B, T, d) f32 read in place: contiguous rows, 16-byte aligned."""
+    return (g.stride(2) == 1 and g.data_ptr() % 16 == 0
+            and g.stride(0) % 4 == 0 and g.stride(1) % 4 == 0)
+
+
+def backward(grad_out: torch.Tensor, sparse: torch.Tensor,
+             rows) -> list:
+    """Kernel launch: dense (rows[t], d) f32 table gradients, views of one
+    zeroed allocation, from ``grad_out`` (B, T, d) f32 (read through its
+    strides; rows contiguous and 16-byte aligned) by atomic adds."""
     require(grad_out.is_cuda, "backward launches a CUDA kernel: grad_out "
             "must be on a CUDA device")
-    require(grad_out.dtype == torch.float32,
-            f"grad_out must be float32, got {grad_out.dtype}")
-    require(grad_out.dim() == 2 and grad_out.is_contiguous(),
-            "grad_out must be a contiguous (B, d) tensor")
-    _check_idx(idx, grad_out.device)
-    B, d = grad_out.shape
-    require(idx.shape[0] == B, "idx and grad_out disagree on B")
-    require(d % 4 == 0 and grad_out.data_ptr() % 16 == 0,
-            "grad_out rows must be whole float4 chunks, 16-byte aligned")
-    grad = torch.zeros((n_rows, d), dtype=torch.float32,
-                       device=grad_out.device)
-    with torch.cuda.device(grad_out.device):
-        rc = _lib().embedding_bag_bwd_f32(
-            grad_out.data_ptr(), idx.data_ptr(), grad.data_ptr(), n_rows, B,
-            idx.shape[1], d, stream_of(grad_out))
-    check_launch(rc, "embedding_bag_backward")
+    grads = _launch(grad_out.get_device(), _module().backward, grad_out,
+                    sparse, list(rows), stream_of(grad_out))
     LAUNCHES["embedding_bag_backward"] += 1
-    return grad
+    return grads
 
 
-class EmbeddingBag(torch.autograd.Function):
-    """Sum-pooled lookup with a dense table gradient; the device of the
-    tensors picks the kernel (CUDA) or the plain version (CPU)."""
+class EmbeddingBags(torch.autograd.Function):
+    """Sum-pooled lookups of T tables, ``apply(sparse, *tables)`` with
+    ``sparse`` (B, T, hot) -> (B, T, d), with a dense gradient per table;
+    the device of the tensors picks the kernels (CUDA) or the plain
+    versions (CPU)."""
 
     @staticmethod
-    def forward(ctx, table, idx):
-        ctx.save_for_backward(idx)
-        ctx.n_rows, ctx.dtype = table.shape[0], table.dtype
-        if on_card(table, idx):
-            return forward(table, idx)
-        return ref.embedding_bag(table, idx)
+    def forward(ctx, sparse, *tables):
+        ctx.save_for_backward(sparse)
+        ctx.dtype = tables[0].dtype
+        if any(ctx.needs_input_grad[1:]):
+            ctx.rows = [t.shape[0] for t in tables]
+        if on_card(tables[0], sparse):
+            return forward(tables, sparse)
+        return ref.embedding_bags(tables, sparse)
 
     @staticmethod
     def backward(ctx, grad_out):
-        (idx,) = ctx.saved_tensors
-        g = grad_out.float().contiguous()
-        if on_card(g, idx):
-            grad = backward(g, idx, ctx.n_rows)
+        (sparse,) = ctx.saved_tensors
+        g = grad_out.float()
+        if on_card(g, sparse):
+            grads = backward(g if _fits(g) else g.contiguous(), sparse,
+                             ctx.rows)
         else:
-            grad = ref.embedding_bag_backward(g, idx, ctx.n_rows)
-        return grad.to(ctx.dtype), None
+            grads = ref.embedding_bags_backward(g, sparse, ctx.rows)
+        return (None, *(x.to(ctx.dtype) for x in grads))

@@ -2,8 +2,11 @@
 sliding-window masks, the gemma2 logit softcap and GQA/MQA.
 
 Replaces ``repro.kernels.flash_attention.flash_attention`` (Pallas,
-forward only).  The CUDA source ``csrc/flash_attention.cu`` says what
-bounds it; it walks only the key tiles the mask touches.
+forward only).  bf16 inputs (the serving path's prefill) go to the
+tensor-core kernel ``csrc/flash_attention_bf16.cu`` (wgmma, TMA), f32
+inputs to the FMA kernel ``csrc/flash_attention.cu``, which keeps f32
+products exact.  Each source says what bounds it; both walk only the key
+tiles the mask touches.
 
 The kernel layout is the reference's: q (B, Hq, Sq, hd), k/v (B, Hkv,
 Skv, hd), queries right-aligned to the KV tail.  The kernel addresses each
@@ -21,15 +24,19 @@ from repro_torch.kernels import (LAUNCHES, _build, check_launch, require,
                                  stream_of)
 
 HEAD_DIMS = (32, 64, 128, 256)
-_SIGS = {"flash_attention_fwd": (_build.I, (
-    _build.P, _build.P, _build.P, _build.P, _build.P,
-    _build.I, _build.I, _build.I, _build.I, _build.I, _build.I, _build.I,
-    _build.F, _build.I, _build.I, _build.F, _build.P))}
+# (q, k, v, o, strides, B, Hq, Hkv, Sq, Skv, hd, scale, causal, window,
+#  softcap, stream) -> CUDA error code; by dtype: (library, function)
+_ARGS = (_build.P, _build.P, _build.P, _build.P, _build.P,
+         _build.I, _build.I, _build.I, _build.I, _build.I, _build.I,
+         _build.F, _build.I, _build.I, _build.F, _build.P)
+_KERNELS = {torch.float32: ("flash_attention", "flash_attention_fwd"),
+            torch.bfloat16: ("flash_attention_bf16", "flash_attention_bf16_fwd")}
 
 
 def _aligned(t: torch.Tensor) -> bool:
     """Contiguous head dim; pointer and (batch, head, seq) strides in
-    whole 16-byte units, as the kernel's vector loads need."""
+    whole 16-byte units, as the f32 kernel's vector loads and the bf16
+    kernel's TMA copies need."""
     size = t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all(s * size % 16 == 0 for s in t.stride()[:3]))
@@ -68,13 +75,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     strides = (_build.LL * 12)(*(s for t in (q, k, v, out)
                                  for s in t.stride()[:3]))
-    lib = _build.load("flash_attention", _SIGS)
+    name, fn = _KERNELS[q.dtype]
+    fn = getattr(_build.load(name, {fn: (_build.I, _ARGS)}), fn)
     with torch.cuda.device(q.device):
-        rc = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            strides, B, Hq, Hkv, Sq, Skv, hd, int(q.dtype == torch.bfloat16),
-            1.0 / math.sqrt(hd), int(causal), int(window), float(softcap),
-            stream_of(q))
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                strides, B, Hq, Hkv, Sq, Skv, hd, 1.0 / math.sqrt(hd),
+                int(causal), int(window), float(softcap), stream_of(q))
     check_launch(rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out

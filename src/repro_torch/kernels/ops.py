@@ -18,10 +18,17 @@ from repro_torch.kernels import ssu_dedupe as _sd
 from repro_torch.kernels import tracker_select as _ts
 
 
+def embedding_bags(tables, sparse):
+    """Sum-pooled lookups of T tables (N_t, d) at once: ``sparse`` (B, T,
+    hot) int32, read in place -> (B, T, d), differentiable in every table
+    (dense gradients).  One kernel launch forward and one backward."""
+    return _eb.EmbeddingBags.apply(sparse, *tables)
+
+
 def embedding_bag(table, idx):
     """Sum-pooled lookup (B, hot) -> (B, d), differentiable in ``table``
-    (dense gradient)."""
-    return _eb.EmbeddingBag.apply(table, idx)
+    (dense gradient): the T = 1 case of ``embedding_bags``."""
+    return embedding_bags([table], idx[:, None])[:, 0]
 
 
 def flash_attention(q, k, v, causal=True, window=0, softcap=0.0):

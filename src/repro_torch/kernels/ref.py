@@ -2,7 +2,8 @@
 
 They mirror ``repro.kernels.ref`` (``embedding_bag``, ``tracker_select``,
 ``ssu_dedupe_evict``, ``row_hash``, ``flash_attention``, ``rglru_scan``)
-and add the embedding-bag backward, which the reference leaves to XLA.
+and add the embedding-bag backward, which the reference leaves to XLA,
+and the multi-table ``embedding_bags`` the fused kernels compute.
 The CPU path runs them; on the card they are only the yardstick
 ``chip_smoke.py`` holds each kernel against.
 """
@@ -32,6 +33,20 @@ def embedding_bag_backward(grad_out, idx, n_rows: int):
     grad = torch.zeros((n_rows, grad_out.shape[1]), dtype=torch.float32,
                        device=grad_out.device)
     return grad.index_add_(0, idx.reshape(-1).long(), rows)
+
+
+def embedding_bags(tables, sparse):
+    """T tables (N_t, d); sparse (B, T, hot) -> (B, T, d): the per-table
+    ``embedding_bag`` stacked on dim 1."""
+    return torch.stack([embedding_bag(t, sparse[:, i])
+                        for i, t in enumerate(tables)], dim=1)
+
+
+def embedding_bags_backward(grad_out, sparse, rows):
+    """The T dense (rows[t], d) f32 gradients of ``embedding_bags`` from
+    grad_out (B, T, d)."""
+    return [embedding_bag_backward(grad_out[:, i], sparse[:, i], n)
+            for i, n in enumerate(rows)]
 
 
 def flash_attention(q, k, v, causal=True, window=0, softcap=0.0):

@@ -6,9 +6,10 @@ CTR logit.  The parameter layout is the reference's
 (``repro.models.dlrm``): ``{"tables": [(N, d)], "bottom": [{"w", "b"}],
 "top": [{"w", "b"}]}`` with ``w`` of shape (in, out) applied as ``x @ w``.
 
-The embedding lookup goes through ``kernels.ops.embedding_bag``: the
-tables' device picks the CUDA kernel or its plain version, so there is
-no ``use_kernel`` switch.
+The embedding lookups of all tables go through one
+``kernels.ops.embedding_bags`` call: the tables' device picks the CUDA
+kernel (one launch forward, one backward) or its plain version, so there
+is no ``use_kernel`` switch.
 """
 from __future__ import annotations
 
@@ -64,10 +65,8 @@ def dlrm_forward(params, batch, cfg: DLRMConfig) -> torch.Tensor:
     """batch: dense (B, num_dense) f32; sparse (B, num_sparse, multi_hot)
     int32 tensors.  Returns CTR logits (B,)."""
     dense_out = apply_mlp_stack(params["bottom"], batch["dense"])  # (B, emb)
-    sparse = batch["sparse"]
-    embs = [ops.embedding_bag(t, sparse[:, i, :].contiguous())
-            for i, t in enumerate(params["tables"])]
-    feats = torch.stack([dense_out] + embs, dim=1)                 # (B, F, emb)
+    embs = ops.embedding_bags(params["tables"], batch["sparse"])  # (B, T, emb)
+    feats = torch.cat([dense_out[:, None], embs], dim=1)           # (B, F, emb)
     inter = torch.bmm(feats, feats.transpose(1, 2))                # (B, F, F)
     f = feats.shape[1]
     iu, ju = torch.triu_indices(f, f, 1, device=feats.device)      # row-major

@@ -5,11 +5,13 @@ inside the ``card`` fixture, never at import).  On a GPU machine:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-Edge shapes the full-width smoke run does not reach: ragged segments,
-k > seg, empty and invalid pending ids, no candidates, a reservoir that
-spans several compaction tiles, more candidates than one block has threads;
-for the LM path, head dims 32-256, MQA/GQA, windows, softcaps, Skv > Sq,
-ragged lengths, f32 and bf16, and the reduced models against the CPU.
+Edge shapes the full-width smoke run does not reach: 1 to 26 tables of
+ragged row counts with out-of-range ids in one embedding launch, ragged
+segments, k > seg, empty and invalid pending ids, no candidates, a
+reservoir that spans several compaction tiles, more candidates than one
+block has threads; for the LM path, head dims 32-256, MQA/GQA, windows,
+softcaps, Skv > Sq, ragged lengths, f32 and bf16, the bf16 kernel's tile
+edges, and the reduced models against the CPU.
 """
 import numpy as np
 import pytest
@@ -54,6 +56,82 @@ def test_embedding_bag_backward_kernel(card, N, B, hot):
     want = ref.embedding_bag_backward(w, idx, N)
     # atomic adds in run-dependent order: f32 rounding of the row sums
     torch.testing.assert_close(table.grad, want, rtol=1e-5, atol=1e-5)
+
+
+def _bags_on_card(card, T, hot, dtype, seed, B=24, d=16):
+    """T tables of ragged row counts and (B, T, hot) ids, some of them out
+    of range (negative or >= N_t), on the card."""
+    rng = np.random.default_rng(seed)
+    rows = [int(n) for n in rng.integers(1, 3000, size=T)]
+    tables = [torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+              .to(card).to(dtype) for n in rows]
+    sparse = np.stack([rng.integers(-3, n + 3, size=(B, hot)) for n in rows],
+                      axis=1).astype(np.int32)
+    return rows, tables, torch.from_numpy(sparse).to(card)
+
+
+def _in_range(sparse, rows, t):
+    """Table t's ids with each out-of-range id pointed at row N_t, a zero
+    row the plain version is given: such ids contribute nothing."""
+    ids = sparse[:, t].long()
+    return torch.where((ids >= 0) & (ids < rows[t]), ids,
+                       torch.full_like(ids, rows[t]))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("T,hot", [(1, 1), (1, 4), (3, 2), (26, 1), (26, 3)])
+def test_embedding_bags_kernel(card, T, hot, dtype, tol):
+    """All tables in one launch, against the per-table plain version."""
+    rows, tables, sparse = _bags_on_card(card, T, hot, dtype, T * 7 + hot)
+    before = LAUNCHES["embedding_bag"]
+    got = ops.embedding_bags(tables, sparse)
+    assert LAUNCHES["embedding_bag"] == before + 1
+    assert got.shape == (sparse.shape[0], T, 16) and got.dtype == dtype
+    for t, table in enumerate(tables):
+        padded = torch.cat([table, table.new_zeros((1, 16))])
+        want = ref.embedding_bag(padded, _in_range(sparse, rows, t))
+        torch.testing.assert_close(got[:, t].float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("T,hot", [(1, 1), (1, 4), (3, 2), (26, 1), (26, 3)])
+def test_embedding_bags_backward_kernel(card, T, hot):
+    """Every table's dense gradient from one launch, reading the output
+    gradient in place through a strided view (as the model's
+    concatenation hands it over), against the per-table plain version."""
+    rows, tables, sparse = _bags_on_card(card, T, hot, torch.float32,
+                                         T * 11 + hot)
+    tables = [t.requires_grad_(True) for t in tables]
+    g = torch.Generator(device=card).manual_seed(T + hot)
+    w = torch.randn((sparse.shape[0], T + 1, 16), generator=g, device=card)
+    before = LAUNCHES["embedding_bag_backward"]
+    out = ops.embedding_bags(tables, sparse)
+    feats = torch.cat([torch.zeros_like(out[:, :1]), out], dim=1)
+    (feats * w).sum().backward()
+    assert LAUNCHES["embedding_bag_backward"] == before + 1
+    for t, table in enumerate(tables):
+        want = ref.embedding_bag_backward(w[:, t + 1], _in_range(sparse, rows, t),
+                                          rows[t] + 1)[:rows[t]]
+        # atomic adds in run-dependent order: f32 rounding of the row sums
+        torch.testing.assert_close(table.grad, want, rtol=1e-5, atol=1e-5)
+
+
+def test_embedding_bags_kernel_refuses(card):
+    from repro_torch.kernels import embedding_bag as eb
+    sparse = torch.zeros((2, 2, 1), dtype=torch.int32, device=card)
+    a = torch.zeros((4, 16), device=card)
+    with pytest.raises(ValueError, match="one dtype"):
+        eb.forward([a, a.to(torch.bfloat16)], sparse)
+    with pytest.raises(ValueError, match="one dtype, one d"):
+        eb.forward([a, torch.zeros((4, 8), device=card)], sparse)
+    with pytest.raises(ValueError, match="contiguous"):
+        eb.forward([a, torch.zeros((4, 32), device=card)[:, ::2]], sparse)
+    with pytest.raises(ValueError, match="tables"):
+        eb.forward([a] * 3, sparse)
+    with pytest.raises(ValueError, match="at most|1 to 64"):
+        eb.forward([a] * 65, torch.zeros((2, 65, 1), dtype=torch.int32,
+                                         device=card))
 
 
 @pytest.mark.parametrize("N,M,k,seg", [(1000, 300, 25, 256), (7, 3, 2, 512),
@@ -252,6 +330,37 @@ def test_flash_attention_kernel(card, B, Hq, Hkv, Sq, Skv, hd, causal,
     assert got.is_contiguous()
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)
+
+
+# the bf16 kernel's tiles: 64 keys, 64 query rows a warpgroup, 128 a CTA
+FLASH_BF16_EDGE_CASES = [
+    # B, Hq, Hkv, Sq, Skv, hd, causal, window, softcap
+    (1, 2, 1, 63, 63, 64, True, 0, 0.0),           # one row / key short
+    (1, 2, 1, 65, 65, 64, True, 0, 0.0),           # one row / key over
+    (2, 2, 2, 63, 65, 128, True, 0, 0.0),          # Skv - Sq = 2
+    (1, 2, 1, 127, 127, 128, False, 0, 0.0),       # one row short of a CTA
+    (1, 2, 1, 129, 129, 32, True, 0, 0.0),         # one row over a CTA
+    (1, 4, 2, 100, 231, 128, True, 0, 0.0),        # Skv - Sq = 131
+    (1, 2, 1, 70, 333, 32, True, 0, 30.0),         # Skv - Sq = 263, softcap
+    (1, 2, 1, 256, 256, 64, True, 64, 0.0),        # window on a tile edge
+    (1, 2, 1, 256, 256, 64, True, 65, 0.0),        # one key past it
+    (1, 2, 1, 256, 256, 64, True, 63, 0.0),        # one key short of it
+    (1, 2, 1, 200, 300, 128, True, 128, 0.0),      # window, Skv > Sq
+    (1, 10, 1, 200, 200, 256, True, 128, 0.0),     # MQA 10:1, hd 256
+    (1, 8, 4, 190, 260, 256, True, 0, 50.0),       # GQA 8:4, hd 256, softcap
+    (2, 10, 1, 520, 520, 256, True, 192, 0.0),     # serving shape, cut short
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,hd,causal,window,softcap",
+                         FLASH_BF16_EDGE_CASES)
+def test_flash_attention_bf16_tile_edges(card, B, Hq, Hkv, Sq, Skv, hd,
+                                         causal, window, softcap):
+    """The tensor-core kernel at its tile edges, at the bf16 limit
+    |kernel - plain| <= 1e-2 |plain| + 4e-3 (p and the output are rounded
+    to bf16; the plain version keeps p in f32)."""
+    test_flash_attention_kernel(card, B, Hq, Hkv, Sq, Skv, hd, causal,
+                                window, softcap, torch.bfloat16, 1e-2, 4e-3)
 
 
 def test_flash_attention_kernel_refuses(card):

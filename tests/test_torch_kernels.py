@@ -3,7 +3,8 @@ the reference's Pallas kernels in interpret mode and its numpy oracles.
 
 The same seeded numpy inputs go to both sides.  Tolerances: exact for the
 integer kernels; embedding bag f32 1e-6, bf16 2e-2 (as
-``tests/test_kernels.py``); the backward f32 1e-6.
+``tests/test_kernels.py``); the backward f32 1e-6; the multi-table
+``embedding_bags`` table by table, at the same limits.
 """
 import jax
 import jax.numpy as jnp
@@ -50,6 +51,53 @@ def test_embedding_bag_backward_matches_jax_grad(N, B, hot):
     assert t.grad.shape == (N, 16)
     np.testing.assert_allclose(t.grad.numpy(), np.asarray(want),
                                rtol=1e-6, atol=1e-6)
+
+
+def _tables_and_bags(rng, T, hot, B=8, d=16):
+    """T tables of ragged row counts (a few distinct sizes) and a
+    (B, T, hot) id tensor, every id in range."""
+    rows = [int(n) for n in rng.choice([1, 7, 40, 333], size=T)]
+    tables = [rng.normal(size=(n, d)).astype(np.float32) for n in rows]
+    sparse = np.stack([rng.integers(0, n, size=(B, hot)) for n in rows],
+                      axis=1).astype(np.int32)
+    return tables, sparse
+
+
+@pytest.mark.parametrize("T,hot", [(1, 4), (3, 2), (26, 1), (26, 3)])
+def test_embedding_bags_match_reference_per_table(T, hot):
+    """All tables in one call against the reference's Pallas
+    ``embedding_bag`` table by table (interpret mode), f32 1e-6."""
+    rng = np.random.default_rng(T * 10 + hot)
+    tables, sparse = _tables_and_bags(rng, T, hot)
+    want = np.stack([np.asarray(rops.embedding_bag(
+        jnp.asarray(t), jnp.asarray(sparse[:, i]), block_d=16))
+        for i, t in enumerate(tables)], axis=1)
+    got = ops.embedding_bags([torch.tensor(t) for t in tables],
+                             torch.tensor(sparse))
+    assert got.shape == (sparse.shape[0], T, 16)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("T,hot", [(1, 4), (3, 2), (26, 1), (26, 3)])
+def test_embedding_bags_backward_matches_jax_grad(T, hot):
+    """Dense gradient of every table from one call, against ``jax.grad``
+    of the jnp gathers; ids repeat across and within bags."""
+    rng = np.random.default_rng(T * 100 + hot)
+    tables, sparse = _tables_and_bags(rng, T, hot)
+    w = rng.normal(size=(sparse.shape[0], T, 16)).astype(np.float32)
+
+    def loss(ts):
+        return sum(jnp.sum(jnp.sum(t[jnp.asarray(sparse[:, i])], 1) *
+                           jnp.asarray(w[:, i])) for i, t in enumerate(ts))
+
+    want = jax.grad(loss)([jnp.asarray(t) for t in tables])
+    ts = [torch.tensor(t, requires_grad=True) for t in tables]
+    (ops.embedding_bags(ts, torch.tensor(sparse)) *
+     torch.tensor(w)).sum().backward()
+    for t, g in zip(ts, want):
+        assert t.grad.shape == g.shape
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g),
+                                   rtol=1e-6, atol=1e-6)
 
 
 # ------------------------------------------------------- tracker_select ----
@@ -144,9 +192,9 @@ def test_wrappers_refuse_cpu_tensors():
     i = torch.zeros(2, 1, dtype=torch.int32)
     c = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        eb.forward(t, i)
+        eb.forward([t], i[:, None])
     with pytest.raises(ValueError, match="CUDA"):
-        eb.backward(torch.zeros(2, 16), i, 4)
+        eb.backward(torch.zeros(2, 1, 16), i[:, None], [4])
     with pytest.raises(ValueError, match="CUDA"):
         ts.tracker_select(c, c, 1)
     with pytest.raises(ValueError, match="CUDA"):
