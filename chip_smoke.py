@@ -17,8 +17,16 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    plain version's time, its bound (the bytes this run's inputs need over
    3.35 TB/s, or operations over the f32 peak, whichever is larger) and,
    where one PyTorch call computes the same function, that call's time.
-   ``ssu_dedupe_evict`` is timed without overflow (the path's steady
-   state, the one in the kernels line) and with it.  ``row_hash`` is held
+   ``ssu_dedupe_evict`` takes raw candidates (repeats, draw order) and is
+   timed without overflow (the path's steady state, the one in the
+   kernels line) and with it; the profiler counts its CUDA kernels per
+   call (more than 2 in the steady state fails), and one full-width
+   ``ssu_update(..., backend="kernel")`` runs under
+   ``torch.cuda.set_sync_debug_mode("error")`` (a host sync fails).
+   ``tracker_select``'s line adds ``torch.topk`` over the (n_seg, seg)
+   view as a yardstick (selection only: no tie order, no clearing).  Both
+   tracker kernels also print their time per call over 100 calls back to
+   back (CUDA events) and their own device time (profiler).  ``row_hash`` is held
    bit for bit against its plain version on that table (f32 and a bf16
    copy, each with its f32 accumulator), a ragged width (d = 9), no rows
    and zero-byte rows; the number of differing words must be 0.
@@ -160,6 +168,23 @@ def zipf_ids(rng, n_rows, shape):
     return perm[ranks].astype(np.int32)
 
 
+def run_ms(fn, n: int = 100) -> float:
+    """CUDA-event ms per call over ``n`` calls back to back: the host
+    enqueues while the card runs, so a call's host path shows only where
+    it is longer than its device work (``time_ms`` times one call, its
+    host path before the launch included)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def time_pair_ms(fn_a, fn_b, reps: int = 101, warmup: int = 5):
     """``time_ms`` of two calls taken in turns (a, b, b, a, ...), so that
     host-bound calls meet the same host: the medians of each."""
@@ -180,23 +205,78 @@ def time_pair_ms(fn_a, fn_b, reps: int = 101, warmup: int = 5):
     return statistics.median(times[0]), statistics.median(times[1])
 
 
+def device_events(fn, reps: int = 10, tries: int = 3):
+    """The device-side events (kernels, copies, memsets) of ``reps`` calls
+    of ``fn`` under ``torch.profiler``, from the first of up to ``tries``
+    profiles that delivered any (a profile now and then delivers none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            return events
+    return []
+
+
 def device_ms(fn, kernel: str, reps: int = 10):
     """(the named kernel's, all kernels') device time per call of ``fn``
     under ``torch.profiler``, or (None, None) where the profiler saw no
     device time."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
+    events = device_events(fn, reps)
     own = sum(e.device_time_total for e in events if kernel in e.key)
     every = sum(e.device_time_total for e in events)
     if not every:
         return None, None
     return own / reps / 1e3, every / reps / 1e3
+
+
+def kernels_per_call(fn, reps: int = 10):
+    """Device operations (kernels, copies, memsets) per call of ``fn`` under
+    ``torch.profiler``, or None where the profiler saw none."""
+    n = sum(e.count for e in device_events(fn, reps))
+    return n / reps if n else None
+
+
+def ssu_update_without_sync(dev, buf):
+    """One ``ssu_update(..., backend="kernel")`` at full width (the largest
+    table's reservoir; its column of a (512, 26, 1) batch, strided as the
+    emulator passes it, at period 2) under
+    ``torch.cuda.set_sync_debug_mode("error")``: any host sync in it fails
+    the run."""
+    from repro_torch.core import trackers as trk
+    from repro_torch.kernels import LAUNCHES
+    rng = np.random.default_rng(4)
+    sparse = torch.from_numpy(zipf_ids(rng, N_BIG, (B, 26, 1))).to(dev)
+    ids = sparse[:, 0, :]
+    state = {"buf": buf, "gen": torch.Generator(device=dev).manual_seed(5)}
+    trk.ssu_update(dict(state), ids, 2, backend="kernel")        # warm
+    torch.cuda.synchronize()
+    before = LAUNCHES["ssu_dedupe_evict"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        new = trk.ssu_update(state, ids, 2, backend="kernel")
+    except RuntimeError as e:
+        fail(f"ssu_update(backend='kernel') synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launched = LAUNCHES["ssu_dedupe_evict"] - before
+    n_kern = kernels_per_call(
+        lambda: trk.ssu_update(dict(state), ids, 2, backend="kernel"))
+    ok = bool((new["buf"][1:] >= new["buf"][:-1]).all())
+    print(f"ssu_update(backend='kernel') at rn={buf.shape[0]}, ids "
+          f"{tuple(ids.shape)}, period 2: no host sync (sync debug mode "
+          f"'error'); ssu_dedupe_evict launches={launched}; CUDA kernels "
+          f"per update={n_kern} (profiler: the draw, the strided copy, the "
+          f"kernel); output sorted={ok}")
+    if launched != 1 or not ok:
+        fail("ssu_update did not go through one ssu_dedupe_evict launch")
 
 
 def print_embedding_times(name, kernel, library, kernel_name):
@@ -386,7 +466,28 @@ def phase_kernels(dev, eb, ts, sd, ref):
         plain_ms=time_ms(lambda: ref.tracker_select(counts, pend, k,
                                                     seg_size=seg)),
         bound_ms=t_b, bound_by=by, library_ms=None)
-    del counts
+    # a yardstick, not the same function (so library_ms stays None):
+    # torch.topk over the padded (n_seg, seg) view picks k per segment but
+    # promises no tie order and clears nothing
+    view = torch.full((n_seg * seg,), -1, dtype=torch.int32, device=dev)
+    view[:N_BIG] = counts
+    view = view.view(n_seg, seg)
+    topk_ms = time_ms(lambda: torch.topk(view, k, dim=1))
+    print(f"tracker_select yardstick: torch.topk over the ({n_seg}, {seg}) "
+          f"view ms={topk_ms:.4f} (selection only: no tie order, no "
+          f"clearing)")
+
+    def select():
+        return ts.tracker_select(counts, pend, k, seg_size=seg)
+
+    own, _ = device_ms(select, "tracker_select_kernel")
+    print(f"tracker_select ({n_seg}, {seg}) k={k}: ms="
+          f"{rows['tracker_select']['ms']:.4f} (CUDA events, one call) "
+          f"run_ms={run_ms(select):.4f} (100 calls back to back) kernel "
+          f"device ms={'not measured' if own is None else f'{own:.4f}'} "
+          f"(profiler) bound_ms={t_b:.5f}; CUDA kernels per call="
+          f"{kernels_per_call(select)} (profiler)")
+    del counts, view
 
     # ---- ssu_dedupe_evict: rn = 0.125 * N, nc = 256 ----
     rn, nc = int(0.125 * N_BIG), 256
@@ -398,12 +499,11 @@ def phase_kernels(dev, eb, ts, sd, ref):
         return buf
 
     def candidates(buf, live):
+        """Raw, as ``ssu_update`` passes them: Zipf ids in draw order,
+        repeats and all, a quarter of them already in the reservoir."""
         c = zipf_ids(rng, N_BIG, (nc,))
         c[: nc // 4] = rng.choice(buf[:live], size=nc // 4)  # already present
-        u = np.unique(c)
-        out = np.full(nc, EMPTY, np.int32)
-        out[:u.size] = u
-        return out
+        return c
 
     # The bytes each case needs.  Without overflow the answer is the merge
     # of the lb live reservoir ids with the live candidates, EMPTY-padded:
@@ -415,7 +515,7 @@ def phase_kernels(dev, eb, ts, sd, ref):
                              ("full (overflow, tied scores)", rn, True)):
         buf_np = reservoir(live)
         cand_np = candidates(buf_np, live)
-        lc = np.setdiff1d(cand_np[cand_np != EMPTY], buf_np).size
+        lc = np.setdiff1d(cand_np, buf_np).size      # live, deduped
         overflow = live + lc > rn
         nbytes = live * 4 + nc * 4 + rn * 4 + (live + lc) * 4 * overflow
         buf = torch.from_numpy(buf_np).to(dev)
@@ -440,11 +540,25 @@ def phase_kernels(dev, eb, ts, sd, ref):
             ms=time_ms(lambda: sd.ssu_dedupe_evict(buf, cand, scores)),
             plain_ms=time_ms(lambda: ref.ssu_dedupe_evict(buf, cand, scores)),
             bound_ms=t_b, bound_by=by, library_ms=None)
+        def update():
+            return sd.ssu_dedupe_evict(buf, cand, scores)
+
+        n_kern = kernels_per_call(update)
+        own, _ = device_ms(update, "ssu_kernel")
         print(f"ssu_dedupe_evict timed, overflow={overflow}: {nbytes} bytes "
-              f"needed; ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-              f"bound_ms={t_b:.5f}")
+              f"needed; ms={row['ms']:.4f} (CUDA events, one call) run_ms="
+              f"{run_ms(update):.4f} (100 calls back to back) kernel device "
+              f"ms={'not measured' if own is None else f'{own:.4f}'} "
+              f"(profiler) plain_ms={row['plain_ms']:.4f} bound_ms="
+              f"{t_b:.5f}; CUDA kernels per call={n_kern} (profiler)")
+        if n_kern is None:
+            fail("the profiler saw no device work in ssu_dedupe_evict")
         if not overflow:                    # the path's steady state
+            if n_kern > 2:
+                fail(f"ssu_dedupe_evict issued {n_kern} CUDA kernels in the "
+                     f"steady state (at most 2)")
             rows["ssu_dedupe_evict"] = row
+    ssu_update_without_sync(dev, timed[False][0])
     for name, r in rows.items():
         print(f"{name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) "

@@ -16,10 +16,12 @@ kept by construction: ``jax.lax.top_k`` puts the lower index first on
 ties, so selections here take the first ``rn`` of a *stable* descending
 sort (``torch.topk`` promises no tie order, and the integer counters tie
 massively); and ``jnp.unique(size=, fill_value=EMPTY)`` becomes a sorted
-``torch.unique`` padded with EMPTY.  The SSU state holds a per-table
-``torch.Generator`` in place of the jax key; its keep-scores are drawn
-before the backend branch, so the host and kernel backends agree given
-the same stream.  ``EMPTY`` (int32 max) marks unused SSU slots.
+``torch.unique`` padded with EMPTY on the host backend, and the
+``ssu_dedupe_evict`` kernel's own dedupe on the kernel backend.  The SSU
+state holds a per-table ``torch.Generator`` in place of the jax key; its
+keep-scores are drawn before the backend branch, so the host and kernel
+backends agree given the same stream.  ``EMPTY`` (int32 max) marks unused
+SSU slots.
 """
 from __future__ import annotations
 
@@ -90,8 +92,9 @@ def ssu_update(state, indices, period: int = 2, backend: str = "host",
     """Insert every ``period``-th accessed id; dedupe; random-evict overflow.
 
     Keeps the buffer sorted ascending with EMPTY slots at the end.
-    ``backend="kernel"`` runs the dedupe/merge/evict through
-    ``ops.ssu_dedupe_evict``.  ``scores`` (rn + nc keep-scores) replaces
+    ``backend="kernel"`` hands the raw strided candidates to
+    ``ops.ssu_dedupe_evict``, which dedupes them itself, so on the card the
+    update makes no host sync.  ``scores`` (rn + nc keep-scores) replaces
     the draw from the state's generator, so a test can hand both sides
     the same stream.
     """
@@ -99,14 +102,15 @@ def ssu_update(state, indices, period: int = 2, backend: str = "host",
     rn = buf.shape[0]
     cand = indices.reshape(-1)[::period].to(torch.int32)
     nc = cand.shape[0]
-    uniq = torch.unique(cand, sorted=True)
-    cand = torch.full((nc,), EMPTY, dtype=torch.int32, device=buf.device)
-    cand[:uniq.shape[0]] = uniq
     if scores is None:
         scores = torch.rand(rn + nc, generator=gen, device=buf.device,
                             dtype=torch.float32)
     if backend == "kernel":
-        return {"buf": ops.ssu_dedupe_evict(buf, cand, scores), "gen": gen}
+        return {"buf": ops.ssu_dedupe_evict(buf, cand.contiguous(), scores),
+                "gen": gen}
+    uniq = torch.unique(cand, sorted=True)
+    cand = torch.full((nc,), EMPTY, dtype=torch.int32, device=buf.device)
+    cand[:uniq.shape[0]] = uniq
     # drop candidates already present
     pos = torch.searchsorted(buf, cand)
     present = buf[pos.clamp(0, rn - 1)] == cand

@@ -1,14 +1,17 @@
-// Host side of the fused embedding-bag kernels (csrc/embedding_bag.cu):
-// the argument checks, the output allocation and the launch, for all of a
-// step's tables in one call from Python.
+// Host side of the kernels whose host path is their cost: the fused
+// embedding bags (csrc/embedding_bag.cu) and the CPR tracker kernels
+// (csrc/tracker_select.cu, csrc/ssu_dedupe.cu).  Each call's argument
+// checks, output and scratch allocation and launch run here, in one call
+// from Python.
 //
-// The kernels' own work at the DLRM path's shape is a few microseconds of
+// The kernels' own work at the DLRM path's shapes is a few (embedding
+// bags, ssu_dedupe_evict) to tens (tracker_select) of microseconds of
 // device time, so a call costs what its host path costs.  Read from
-// Python, each of the 26 tensors' dtype, device, shape, contiguity and
-// pointer is an attribute call, and together they cost more than one
-// library call on one tensor; here each is a field read of the
-// at::Tensor, and the list crosses once.
-// The CUDA source keeps its plain C launchers (built by nvcc without
+// Python, each tensor's dtype, device, shape, contiguity and pointer is
+// an attribute call (26 tensors for the embedding bags), and together they
+// cost more than one library call on one tensor; here each is a field
+// read of the at::Tensor, and a list crosses once.
+// The CUDA sources keep their plain C launchers (built by nvcc without
 // PyTorch's headers); this file, built by the host compiler against
 // PyTorch's headers, calls them through the addresses `bind` is given.
 
@@ -17,13 +20,17 @@
 #include <ATen/ops/zeros.h>
 #include <torch/csrc/utils/pybind.h>
 
+#include <algorithm>
 #include <cstdint>
 #include <string>
+#include <tuple>
 #include <vector>
 
 namespace {
 
-constexpr int64_t kMaxTables = 64;  // kMaxTables of embedding_bag.cu
+constexpr int64_t kMaxTables = 64;        // embedding_bag.cu
+constexpr int64_t kMaxSeg = 32 * 32 * 16;   // tracker_select.cu
+constexpr int64_t kMaxCand = 8192;          // ssu_dedupe.cu
 
 using ForwardLaunch = int (*)(const long long* ptrs, const long long* rows,
                               int n_tables, const void* idx, void* out,
@@ -34,10 +41,20 @@ using BackwardLaunch = int (*)(const void* grad_out, long long gs_bag,
                                const long long* ptrs, const long long* rows,
                                int n_tables, int batch, int hot, int d,
                                void* stream);
+using SelectLaunch = int (*)(const void* counts, const void* pending,
+                             long long n_pending, void* new_counts, void* ids,
+                             long long n_rows, int seg, int k, void* stream);
+using ScratchWords = long long (*)(int nc);
+using SsuLaunch = int (*)(const void* buf, const void* cand,
+                          const void* scores, void* out, void* scratch,
+                          int rn, int nc, void* stream);
 ForwardLaunch g_forward = nullptr;
 BackwardLaunch g_backward = nullptr;
+SelectLaunch g_select = nullptr;
+ScratchWords g_scratch_words = nullptr;
+SsuLaunch g_ssu = nullptr;
 
-void require(bool ok, const char* what) {
+void require(bool ok, const std::string& what) {
   if (!ok) throw pybind11::value_error(what);
 }
 
@@ -146,13 +163,87 @@ std::vector<at::Tensor> backward(const at::Tensor& grad_out,
   return flat.split_with_sizes(rows);
 }
 
+bool flat_on(const at::Tensor& t, const c10::Device& device) {
+  return t.dim() == 1 && t.is_contiguous() && t.device() == device;
+}
+
+// counts (N,) int32 on a CUDA device (the caller checked), pending (n,)
+// int32 ids (may be empty) -> (row_ids (n_seg*k,) int32, new_counts (N,)
+// int32)
+std::tuple<at::Tensor, at::Tensor> tracker_select(const at::Tensor& counts,
+                                                  const at::Tensor& pending,
+                                                  int64_t k, int64_t seg_size,
+                                                  int64_t stream) {
+  require(counts.scalar_type() == at::kInt &&
+              pending.scalar_type() == at::kInt,
+          "counts and indices must be int32");
+  require(counts.dim() == 1 && counts.is_contiguous(),
+          "counts must be a contiguous (N,) tensor");
+  require(pending.dim() == 1 && pending.is_contiguous(),
+          "indices must be a contiguous 1-D tensor");
+  require(pending.device() == counts.device(),
+          "indices must lie on the counts' device");
+  const int64_t n = counts.size(0);
+  const int64_t seg = std::min<int64_t>(seg_size, std::max<int64_t>(n, 1));
+  const int64_t n_seg = (n + seg - 1) / seg;
+  k = std::min(k, seg);
+  require(k >= 1, "k must be >= 1, got " + std::to_string(k));
+  require(seg <= kMaxSeg, "seg_size " + std::to_string(seg) +
+          " is wider than one team of threads holds (max " +
+          std::to_string(kMaxSeg) + ")");
+  at::Tensor ids = at::empty({n_seg * k}, counts.options());
+  at::Tensor new_counts = at::empty({n}, counts.options());
+  if (n == 0) return {ids, new_counts};
+  check_launch(g_select(counts.data_ptr(), pending.data_ptr(),
+                        pending.numel(), new_counts.data_ptr(),
+                        ids.data_ptr(), n, static_cast<int>(seg),
+                        static_cast<int>(k), reinterpret_cast<void*>(stream)),
+               "tracker_select");
+  return {ids, new_counts};
+}
+
+// buf (rn,) int32 sorted, EMPTY-padded, on a CUDA device (the caller
+// checked); cand (nc,) int32 in any order; scores (rn + nc,) float32 ->
+// new (rn,) sorted int32 buffer
+at::Tensor ssu_dedupe_evict(const at::Tensor& buf, const at::Tensor& cand,
+                            const at::Tensor& scores, int64_t stream) {
+  require(buf.scalar_type() == at::kInt && cand.scalar_type() == at::kInt,
+          "buf and cand must be int32");
+  require(scores.scalar_type() == at::kFloat, "scores must be float32");
+  const c10::Device device = buf.device();
+  require(flat_on(buf, device) && flat_on(cand, device) &&
+              flat_on(scores, device),
+          "buf, cand and scores must be contiguous 1-D tensors on one device");
+  const int64_t rn = buf.size(0), nc = cand.size(0);
+  require(rn >= 1, "the reservoir must have at least one slot");
+  require(nc <= kMaxCand, "at most " + std::to_string(kMaxCand) +
+          " candidates, got " + std::to_string(nc));
+  require(scores.size(0) == rn + nc, "scores must have rn + nc entries");
+  require(rn + nc < (int64_t{1} << 31),
+          "reservoir too large for int32 positions");
+  const int r = static_cast<int>(rn), c = static_cast<int>(nc);
+  at::Tensor scratch = at::empty({g_scratch_words(c)}, buf.options());
+  at::Tensor out = at::empty({rn}, buf.options());
+  check_launch(g_ssu(buf.data_ptr(), cand.data_ptr(), scores.data_ptr(),
+                     out.data_ptr(), scratch.data_ptr(), r, c,
+                     reinterpret_cast<void*>(stream)),
+               "ssu_dedupe_evict");
+  return out;
+}
+
 }  // namespace
 
-PYBIND11_MODULE(embedding_bag_host, m) {
-  m.def("bind", [](int64_t fwd, int64_t bwd) {
+PYBIND11_MODULE(launch_host, m) {
+  m.def("bind", [](int64_t fwd, int64_t bwd, int64_t select,
+                   int64_t scratch_words, int64_t ssu) {
     g_forward = reinterpret_cast<ForwardLaunch>(fwd);
     g_backward = reinterpret_cast<BackwardLaunch>(bwd);
+    g_select = reinterpret_cast<SelectLaunch>(select);
+    g_scratch_words = reinterpret_cast<ScratchWords>(scratch_words);
+    g_ssu = reinterpret_cast<SsuLaunch>(ssu);
   });
-  m.def("forward", &forward);
-  m.def("backward", &backward);
+  m.def("embedding_bags_forward", &forward);
+  m.def("embedding_bags_backward", &backward);
+  m.def("tracker_select", &tracker_select);
+  m.def("ssu_dedupe_evict", &ssu_dedupe_evict);
 }

@@ -1,68 +1,86 @@
 // CPR-SSU reservoir update (dedupe + merge + random evict) for Hopper
-// (sm_90a): multi-block and exact.
+// (sm_90a): one cooperative launch, exact.
 //
 // Replaces: src/repro/kernels/ssu_dedupe.py, function ssu_dedupe_evict
-// (the Pallas kernel: one block that sorts the whole union).  The TPU
-// design assumed a reservoir of thousands of ids.  At full Criteo-Kaggle
-// width the largest table's reservoir has rn = 1,266,403 slots, so the
-// union cannot be sorted inside one block's 227 KB of shared memory.
-// This version gets the same answer from what the reference body computes:
+// (the Pallas kernel: one block that sorts the whole union).  At full
+// Criteo-Kaggle width the largest table's reservoir has rn = 1,266,403
+// slots, so the union cannot be sorted in one block's shared memory.  The
+// kernel gets the same answer from what the reference body computes, with
+// `combined` (the sorted union) never written out: its slot o holds the
+// live candidate whose merge position is o, else buf[o - c] (c = live
+// candidates placed before o) while that is a live id, else EMPTY.
 //
-//   K1  one block: sort the nc candidates in shared memory (bitonic), drop
-//       those found in the sorted reservoir (binary search), compact the
-//       live ones (block scan) and place each at its merge-path rank in
-//       `combined` (its rank among live candidates + the number of live
-//       reservoir ids below it).  Counts the live entries; flags overflow.
-//   K2  one thread per slot: place each live reservoir id at its merge rank
-//       (its index + the number of live candidates below it) and fill the
-//       tail of `combined` with EMPTY.  `combined` now equals the
-//       reference's sort(concat(buf, cand)).
-//   Without overflow (live <= rn) the answer is combined[:rn] (K6).
-//   With overflow the rn smallest (score, position) keys survive, as the
-//   reference's stable argsort keeps them:
-//   K3  4 passes of an 8-bit radix select over the order-preserving bits
-//       of each slot's score (EMPTY slots score +inf) find the rn-th
-//       smallest score T and how many slots equal to T must be kept;
-//   K4-K6  count the slots below T and equal to T per tile, scan the
-//       tile counts, and compact the kept slots in position order.  Since
-//       `combined` is sorted, position order is the sorted output.
+// One cooperative launch, one 1024-thread block per SM, phases separated
+// by grid-wide barriers:
+//   1  every block sorts the raw candidates in shared memory (bitonic)
+//      and keeps each value once, dropping EMPTY: the `unique` the caller
+//      used to run.  The grid's warps then look the unique candidates up
+//      in the reservoir, one warp each, by a 32-ary search (one load per
+//      lane per step: ~5 dependent loads at rn = 1.27 M instead of ~21),
+//      writing each one's lower bound or "present"; one warp finds lb,
+//      the count of live reservoir ids.
+//                                                          [grid barrier]
+//   2  every block compacts the live candidates and their merge positions
+//      (rank + lower bound) into shared memory.  Without overflow (live =
+//      lb + lc <= rn, the steady state of a run) each block writes its own
+//      slice of `out` = combined[:rn], 4 slots a thread from reservoir ids
+//      loaded together, and the kernel ends: one launch, one barrier.
+//   3  overflow: the rn smallest (score, position) keys of positions [0,
+//      live) survive, as the reference's stable argsort keeps them (every
+//      position below `live` is live; EMPTY scores +inf and never makes
+//      it).  4 passes of an 8-bit radix select over the order-preserving
+//      bits of the scores (-0 ties +0) find the rn-th smallest key T and how
+//      many keys equal to T are kept.        [a grid barrier after each pass]
+//      Each block counts its slice's keys below T and equal to T [barrier],
+//      then writes its kept slots in position order, which is the sorted
+//      order of the output.
 //
 // Bound on this card: bytes, and they depend on the case.  Without
-// overflow (the steady state of a run) the answer reads the lb live ids
-// of buf and cand (nc*4) and writes rn*4; the scores are never needed.
-// With overflow it also reads the live slots' scores ((lb+lc)*4).  For the
-// largest Kaggle table (rn = 1,266,403, nc = 256) that is about 7.6 MB
-// (half-full reservoir, 2.3 us at 3.35 TB/s) or 15.2 MB (full, 4.5 us).
-// This version moves `combined` and the scores several times (K2 write,
-// 4 histogram passes, 2 compaction passes) and runs 14 small launches, so
-// expect it well above the bound; without overflow K3-K5 exit at once.
+// overflow the answer reads the lb live ids of buf and the nc candidates
+// and writes rn*4; the scores are never needed.  With overflow it also
+// reads the live slots' scores.  For the largest Kaggle table (rn =
+// 1,266,403, nc = 256) that is about 7.6 MB (half-full reservoir, 2.3 us
+// at 3.35 TB/s) or 15.2 MB (full, 4.5 us).  Without overflow the kernel
+// moves just those bytes; the rest of its time is the launch, the sort,
+// the search's dependent loads and one grid barrier, a fixed cost of a
+// few microseconds.
 //
 // Preconditions (as the reference's): buf sorted ascending with EMPTY
-// (INT32_MAX) padding at the end; scores finite; nc <= 8192.
+// (INT32_MAX) padding at the end; scores finite; nc <= 8192.  Candidates
+// come in any order, repeats allowed.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <limits.h>
 #include <math.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int32_t kEmpty = INT_MAX;
-constexpr int kThreads = 1024;                // blocks of K1, K4-K6
-constexpr int kItems = 4;                     // slots per thread in K4/K6
-constexpr int kTile = kThreads * kItems;
-constexpr int kHistThreads = 256;
-constexpr int kStateWords = 16;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kSlots = 4;              // consecutive slots a thread handles
+constexpr int kBlocksPerSM = 1;
+constexpr int kMaxGrid = 2048;
+constexpr int kMetaWords = 1;
 constexpr int kHistWords = 4 * 256;
+constexpr int kMaxCand = 8192;
 
-struct State {
-  int32_t lb;          // live ids in buf
-  int32_t lc;          // live candidates after the dedupe
-  int32_t live;        // lb + lc
-  int32_t overflow;    // live > rn
-  uint32_t prefix;     // radix select: bits of T found so far
-  uint32_t mask;       // which bits of prefix are fixed
-  uint32_t k_rem;      // rank still to find below the prefix
+struct Params {
+  const int32_t* buf;
+  const int32_t* cand;
+  const float* scores;
+  int32_t* out;
+  int32_t* cpos;       // [P]: lower bound in buf of each unique candidate,
+                       //      -1 where it is present
+  int32_t* meta;       // [kMetaWords]: lb
+  uint32_t* hist;      // [4][256]: the radix passes' histograms
+  int32_t* blk;        // [2 * grid]: each block's keys below / equal to T
+  int rn, nc, P;
 };
 
 __device__ __forceinline__ int lower_bound(const int32_t* a, int n, int32_t v) {
@@ -74,280 +92,362 @@ __device__ __forceinline__ int lower_bound(const int32_t* a, int n, int32_t v) {
   return lo;
 }
 
+// First p in [0, n] with a[p] >= v (a sorted), the same in every lane,
+// and whether a[p] == v.  Each step splits [lo, hi] at 31 pivots, one
+// load per lane.
+__device__ int warp_lower_bound(const int32_t* a, int n, int32_t v, int lane,
+                                bool* found) {
+  int lo = 0, hi = n;      // a[i] < v for i < lo; a[i] >= v for i >= hi
+  while (hi - lo >= 32) {
+    const long long span = hi - lo;
+    bool less = false;
+    if (lane < 31) less = a[lo + (int)(span * (lane + 1) / 32)] < v;
+    const int c = __popc(__ballot_sync(kFull, less));
+    const int nlo = c ? lo + (int)(span * c / 32) + 1 : lo;
+    if (c < 31) hi = lo + (int)(span * (c + 1) / 32);
+    lo = nlo;
+  }
+  const int i = lo + lane;
+  const bool in = i <= hi && i < n;
+  const int32_t x = in ? a[i] : 0;
+  *found = __ballot_sync(kFull, in && x == v) != 0u;
+  return lo + __popc(__ballot_sync(kFull, in && x < v));
+}
+
 // Exclusive prefix sum over the block; *total gets the block's sum.
 // Every thread of the block must call it.
 __device__ int block_excl_scan(int v, int* warp_sums, int* total) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
   int x = v;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    int y = __shfl_up_sync(0xffffffffu, x, o);
+    int y = __shfl_up_sync(kFull, x, o);
     if (lane >= o) x += y;
   }
   if (lane == 31) warp_sums[wid] = x;
   __syncthreads();
   if (wid == 0) {
-    int w = lane < n_warps ? warp_sums[lane] : 0;
+    int w = lane < kWarps ? warp_sums[lane] : 0;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
-      int y = __shfl_up_sync(0xffffffffu, w, o);
+      int y = __shfl_up_sync(kFull, w, o);
       if (lane >= o) w += y;
     }
-    if (lane < n_warps) warp_sums[lane] = w;
+    if (lane < kWarps) warp_sums[lane] = w;
   }
   __syncthreads();
   int before = (wid > 0 ? warp_sums[wid - 1] : 0) + x - v;
-  *total = warp_sums[n_warps - 1];
+  *total = warp_sums[kWarps - 1];
   __syncthreads();
   return before;
 }
 
-// Order-preserving bits of a slot's keep-score (EMPTY slots: +inf).
-__device__ __forceinline__ uint32_t key_at(const int32_t* combined,
-                                           const float* scores, int p) {
-  float f = combined[p] != kEmpty ? scores[p] : INFINITY;
-  if (f == 0.f) f = 0.f;               // -0 and +0 tie, as in the reference
+// Order-preserving bits of a keep-score; -0 and +0 tie, as in the reference.
+__device__ __forceinline__ uint32_t score_key(float f) {
+  if (f == 0.f) f = 0.f;
   uint32_t u = __float_as_uint(f);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-__global__ void ssu_cand_kernel(const int32_t* __restrict__ buf,
-                                const int32_t* __restrict__ cand,
-                                int rn, int nc, int P, State* st,
-                                int32_t* __restrict__ cm_live,
-                                int32_t* __restrict__ combined) {
-  extern __shared__ int32_t s[];
+// The union's slot o; c counts the live candidates placed before o and
+// moves past the one placed at o.
+struct Union {
+  const int32_t* buf;
+  const int32_t* live;     // live candidates, sorted (shared memory)
+  const int32_t* mpos;     // their slots in the union (shared memory)
+  int lb, lc;
+  __device__ __forceinline__ int32_t at(int o, int& c) const {
+    if (c < lc && mpos[c] == o) return live[c++];
+    const int q = o - c;
+    return q < lb ? buf[q] : kEmpty;
+  }
+};
+
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM) ssu_kernel(Params a) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ int32_t sm[];
+  int32_t* srt = sm;              // [P] sorted candidates; later the live ones
+  int32_t* uq = sm + a.P;         // [P] unique candidates
+  int32_t* mpos = sm + 2 * a.P;   // [P] the live ones' slots in the union
   __shared__ int warp_sums[32];
-  __shared__ int lb_sh;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < P; i += blockDim.x) s[i] = i < nc ? cand[i] : kEmpty;
-  if (tid == 0) lb_sh = lower_bound(buf, rn, kEmpty);
+  __shared__ uint32_t h[256];
+  __shared__ int sh[4];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int P = a.P, rn = a.rn;
+
+  // ---- 1. sort, unique, look up ----
+  // bitonic sort of the candidates padded with EMPTY to P, then each
+  // value kept once (block scan)
+  for (int i = tid; i < P; i += kThreads) srt[i] = i < a.nc ? a.cand[i] : kEmpty;
   __syncthreads();
-  for (int k = 2; k <= P; k <<= 1) {             // bitonic sort, ascending
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < P; i += blockDim.x) {
-        int ixj = i ^ j;
-        if (ixj > i) {
-          int32_t a = s[i], b = s[ixj];
-          bool up = (i & k) == 0;
-          if ((a > b) == up) { s[i] = b; s[ixj] = a; }
-        }
+  for (int size = 2; size <= P; size <<= 1) {
+    for (int j = size >> 1; j > 0; j >>= 1) {
+      for (int i = tid; i < P / 2; i += kThreads) {
+        const int x = ((i & ~(j - 1)) << 1) | (i & (j - 1)), y = x | j;
+        const int32_t u = srt[x], w = srt[y];
+        if ((u > w) == ((x & size) == 0)) { srt[x] = w; srt[y] = u; }
       }
       __syncthreads();
     }
   }
-  const int lb = lb_sh;
-  const int E = (P + blockDim.x - 1) / blockDim.x;
-  const int c0 = min(tid * E, P), c1 = min(c0 + E, P);
-  int n_live = 0;
-  for (int i = c0; i < c1; ++i) {                // drop ids already present
-    int32_t v = s[i];
-    if (v == kEmpty) continue;
-    int pos = lower_bound(buf, rn, v);
-    if (pos < rn && buf[pos] == v) s[i] = kEmpty; else ++n_live;
+  int nu;                                 // unique candidates, in uq
+  {
+    const int E = (P + kThreads - 1) / kThreads;
+    const int i0 = min(tid * E, P), i1 = min(i0 + E, P);
+    int n = 0;
+    for (int i = i0; i < i1; ++i)
+      n += srt[i] != kEmpty && (i == 0 || srt[i] != srt[i - 1]);
+    int r = block_excl_scan(n, warp_sums, &nu);
+    for (int i = i0; i < i1; ++i)
+      if (srt[i] != kEmpty && (i == 0 || srt[i] != srt[i - 1])) uq[r++] = srt[i];
+    __syncthreads();
   }
+  const int gw = blockIdx.x * kWarps + warp, n_gw = gridDim.x * kWarps;
+  for (int u = gw; u < nu; u += n_gw) {
+    bool found;
+    const int p = warp_lower_bound(a.buf, rn, uq[u], lane, &found);
+    if (lane == 0) a.cpos[u] = found ? -1 : p;
+  }
+  if (gw == n_gw - 1) {
+    bool found;
+    const int lb = warp_lower_bound(a.buf, rn, kEmpty, lane, &found);
+    if (lane == 0) a.meta[0] = lb;
+  }
+  if (blockIdx.x == 0)
+    for (int i = tid; i < kHistWords; i += kThreads) a.hist[i] = 0u;
+  grid.sync();
+
+  // ---- 2. the live candidates and their slots; no overflow: write ----
+  const int lb = __ldcg(a.meta);
+  const int Eu = (nu + kThreads - 1) / kThreads;
+  const int u0 = min(tid * Eu, nu), u1 = min(u0 + Eu, nu);
+  int n = 0;
+  for (int u = u0; u < u1; ++u) n += __ldcg(a.cpos + u) >= 0;
   int lc;
-  int rank = block_excl_scan(n_live, warp_sums, &lc);
-  for (int i = c0; i < c1; ++i) {
-    int32_t v = s[i];
-    if (v == kEmpty) continue;
-    cm_live[rank] = v;
-    combined[rank + lower_bound(buf, lb, v)] = v;
-    ++rank;
-  }
-  if (tid == 0) {
-    st->lb = lb;
-    st->lc = lc;
-    st->live = lb + lc;
-    st->overflow = lb + lc > rn;
-    st->prefix = 0u;
-    st->mask = 0u;
-    st->k_rem = (uint32_t)rn;
-  }
-}
-
-__global__ void ssu_merge_kernel(const int32_t* __restrict__ buf,
-                                 const State* st,
-                                 const int32_t* __restrict__ cm_live,
-                                 int32_t* __restrict__ combined, int M) {
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= M) return;
-  const int lb = st->lb, lc = st->lc, live = st->live;
-  if (p < lb) {
-    int32_t v = buf[p];
-    combined[p + lower_bound(cm_live, lc, v)] = v;
-  }
-  if (p >= live) combined[p] = kEmpty;
-}
-
-__global__ void ssu_hist_kernel(const int32_t* __restrict__ combined,
-                                const float* __restrict__ scores,
-                                const State* st, uint32_t* hist, int M,
-                                int shift) {
-  if (!st->overflow) return;
-  __shared__ uint32_t h[256];
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) h[i] = 0u;
-  __syncthreads();
-  const uint32_t prefix = st->prefix, mask = st->mask;
-  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < M;
-       p += gridDim.x * blockDim.x) {
-    uint32_t key = key_at(combined, scores, p);
-    if ((key & mask) == prefix) atomicAdd(&h[(key >> shift) & 0xffu], 1u);
+  int r = block_excl_scan(n, warp_sums, &lc);
+  for (int u = u0; u < u1; ++u) {
+    const int p = __ldcg(a.cpos + u);
+    if (p >= 0) { srt[r] = uq[u]; mpos[r] = r + p; ++r; }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < 256; i += blockDim.x)
-    if (h[i]) atomicAdd(&hist[i], h[i]);
-}
-
-__global__ void ssu_pick_kernel(State* st, const uint32_t* hist, int shift) {
-  if (threadIdx.x != 0 || !st->overflow) return;
-  const uint32_t k = st->k_rem;
-  uint32_t cum = 0u;
-  for (uint32_t b = 0; b < 256u; ++b) {
-    uint32_t c = hist[b];
-    if (cum + c >= k) {
-      st->prefix |= b << shift;
-      st->mask |= 0xffu << shift;
-      st->k_rem = k - cum;
-      return;
-    }
-    cum += c;
-  }
-}
-
-__global__ void ssu_count_kernel(const int32_t* __restrict__ combined,
-                                 const float* __restrict__ scores,
-                                 const State* st, int32_t* blk_less,
-                                 int32_t* blk_eq, int M) {
-  if (!st->overflow) return;
-  __shared__ int warp_sums[32];
-  const uint32_t T = st->prefix;
-  const int base = blockIdx.x * kTile + threadIdx.x * kItems;
-  int nl = 0, ne = 0;
+  const Union uni{a.buf, srt, mpos, lb, lc};
+  const int live = lb + lc;
+  if (live <= rn) {                      // out = combined[:rn]
+    const long long chunk = ((long long)rn + (long long)kSlots * gridDim.x - 1) /
+                            ((long long)kSlots * gridDim.x) * kSlots;
+    const int o0 = (int)min((long long)blockIdx.x * chunk, (long long)rn);
+    const int o1 = (int)min((long long)o0 + chunk, (long long)rn);
+    const bool vec = ((uintptr_t)a.out & 15) == 0;
+    for (int base = o0 + tid * kSlots; base < o1; base += kThreads * kSlots) {
+      int c = lower_bound(mpos, lc, base);
+      // the reservoir ids these slots can hold, buf[q .. q + kSlots), loaded
+      // at once: each slot takes the next one unless a candidate sits there
+      const int q = base - c;
+      int32_t b[kSlots], v[kSlots];
 #pragma unroll
-  for (int q = 0; q < kItems; ++q) {
-    int p = base + q;
-    if (p < M) {
-      uint32_t key = key_at(combined, scores, p);
-      nl += key < T;
-      ne += key == T;
+      for (int e = 0; e < kSlots; ++e) b[e] = q + e < lb ? a.buf[q + e] : kEmpty;
+      int used = 0;
+#pragma unroll
+      for (int e = 0; e < kSlots; ++e) {
+        if (c < lc && mpos[c] == base + e) {
+          v[e] = srt[c++];
+        } else {
+          int32_t x = b[0];
+#pragma unroll
+          for (int f = 1; f < kSlots; ++f) x = used == f ? b[f] : x;
+          v[e] = x;
+          ++used;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < kSlots; e += 4) {
+        if (vec && base + e + 4 <= o1) {
+          *reinterpret_cast<int4*>(a.out + base + e) =
+              make_int4(v[e], v[e + 1], v[e + 2], v[e + 3]);
+        } else {
+#pragma unroll
+          for (int f = e; f < e + 4; ++f) if (base + f < o1) a.out[base + f] = v[f];
+        }
+      }
     }
+    return;
+  }
+
+  // ---- 3. overflow: radix select of the rn-th smallest key ----
+  const long long per = ((long long)live + gridDim.x - 1) / gridDim.x;
+  const int s0 = (int)min((long long)blockIdx.x * per, (long long)live);
+  const int s1 = (int)min((long long)s0 + per, (long long)live);
+  uint32_t prefix = 0u, mask = 0u, k_rem = (uint32_t)rn;
+  for (int pass = 0; pass < 4; ++pass) {
+    const int shift = 24 - 8 * pass;
+    for (int i = tid; i < 256; i += kThreads) h[i] = 0u;
+    __syncthreads();
+    for (int base = s0; base < s1; base += kThreads) {
+      const int o = base + tid;
+      bool act = false;
+      uint32_t bin = 0u;
+      if (o < s1) {
+        const uint32_t key = score_key(a.scores[o]);
+        act = (key & mask) == prefix;
+        bin = (key >> shift) & 0xffu;
+      }
+      const unsigned am = __ballot_sync(kFull, act);
+      if (act) {                         // one atomic per distinct bin
+        const unsigned peers = __match_any_sync(am, bin);
+        if (lane == __ffs(peers) - 1) atomicAdd(&h[bin], (uint32_t)__popc(peers));
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < 256; i += kThreads)
+      if (h[i]) atomicAdd(a.hist + 256 * pass + i, h[i]);
+    grid.sync();
+    if (warp == 0) {                     // every block finds the same digit
+      uint32_t cnt[8], sum = 0u;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        cnt[j] = __ldcg(a.hist + 256 * pass + 8 * lane + j);
+        sum += cnt[j];
+      }
+      uint32_t inc = sum;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        uint32_t y = __shfl_up_sync(kFull, inc, o);
+        if (lane >= o) inc += y;
+      }
+      uint32_t cum = inc - sum;
+      if (cum < k_rem && k_rem <= inc) {
+        for (int j = 0; j < 8; ++j) {
+          if (cum + cnt[j] >= k_rem) {
+            sh[0] = 8 * lane + j;
+            sh[1] = (int)(k_rem - cum);
+            break;
+          }
+          cum += cnt[j];
+        }
+      }
+    }
+    __syncthreads();
+    prefix |= (uint32_t)sh[0] << shift;
+    mask |= 0xffu << shift;
+    k_rem = (uint32_t)sh[1];
+    __syncthreads();
+  }
+
+  // ---- ordered compaction: key < T kept; of key == T the first `need` ----
+  const uint32_t T = prefix;
+  const int need = (int)k_rem;
+  int nl = 0, ne = 0;
+  for (int o = s0 + tid; o < s1; o += kThreads) {
+    const uint32_t key = score_key(a.scores[o]);
+    nl += key < T;
+    ne += key == T;
   }
   int tl, te;
   block_excl_scan(nl, warp_sums, &tl);
   block_excl_scan(ne, warp_sums, &te);
-  if (threadIdx.x == 0) { blk_less[blockIdx.x] = tl; blk_eq[blockIdx.x] = te; }
-}
-
-__global__ void ssu_scan_blocks_kernel(const State* st, int32_t* blk_less,
-                                       int32_t* blk_eq, int nb) {
-  if (!st->overflow) return;
-  __shared__ int warp_sums[32];
-  int carry_l = 0, carry_e = 0;
-  for (int base = 0; base < nb; base += blockDim.x) {
-    int i = base + threadIdx.x;
-    int vl = i < nb ? blk_less[i] : 0;
-    int ve = i < nb ? blk_eq[i] : 0;
-    int tl, te;
-    int bl = block_excl_scan(vl, warp_sums, &tl);
-    int be = block_excl_scan(ve, warp_sums, &te);
-    if (i < nb) { blk_less[i] = carry_l + bl; blk_eq[i] = carry_e + be; }
-    carry_l += tl;
-    carry_e += te;
-  }
-}
-
-__global__ void ssu_write_kernel(const int32_t* __restrict__ combined,
-                                 const float* __restrict__ scores,
-                                 const State* st, const int32_t* blk_less,
-                                 const int32_t* blk_eq,
-                                 int32_t* __restrict__ out, int rn, int M) {
-  const int base = blockIdx.x * kTile + threadIdx.x * kItems;
-  if (!st->overflow) {                           // out = combined[:rn]
-#pragma unroll
-    for (int q = 0; q < kItems; ++q) {
-      int p = base + q;
-      if (p < rn) out[p] = combined[p];
+  if (tid == 0) { a.blk[blockIdx.x] = tl; a.blk[gridDim.x + blockIdx.x] = te; }
+  grid.sync();
+  if (warp == 0) {
+    int bl = 0, be = 0;
+    for (int b = lane; b < (int)blockIdx.x; b += 32) {
+      bl += __ldcg(a.blk + b);
+      be += __ldcg(a.blk + gridDim.x + b);
     }
-    return;
+    bl = __reduce_add_sync(kFull, bl);
+    be = __reduce_add_sync(kFull, be);
+    if (lane == 0) { sh[2] = bl; sh[3] = be; }
   }
-  __shared__ int warp_sums[32];
-  const uint32_t T = st->prefix;
-  const int need = (int)st->k_rem;               // slots equal to T to keep
-  uint32_t keys[kItems];
-  int nl = 0, ne = 0;
+  __syncthreads();
+  int rl = sh[2], re = sh[3];
+  for (int base = s0; base < s1; base += kThreads * kSlots) {
+    const int o = base + tid * kSlots;
+    uint32_t keys[kSlots];
+    int cl = 0, ce = 0;
 #pragma unroll
-  for (int q = 0; q < kItems; ++q) {
-    int p = base + q;
-    keys[q] = p < M ? key_at(combined, scores, p) : 0xffffffffu;
-    if (p < M) { nl += keys[q] < T; ne += keys[q] == T; }
-  }
-  int tl, te;
-  int rl = blk_less[blockIdx.x] + block_excl_scan(nl, warp_sums, &tl);
-  int re = blk_eq[blockIdx.x] + block_excl_scan(ne, warp_sums, &te);
-#pragma unroll
-  for (int q = 0; q < kItems; ++q) {
-    int p = base + q;
-    if (p >= M) break;
-    if (keys[q] < T) {
-      out[rl + min(re, need)] = combined[p];
-      ++rl;
-    } else if (keys[q] == T) {
-      if (re < need) out[rl + re] = combined[p];
-      ++re;
+    for (int q = 0; q < kSlots; ++q) {
+      keys[q] = o + q < s1 ? score_key(a.scores[o + q]) : 0xffffffffu;
+      cl += o + q < s1 && keys[q] < T;
+      ce += o + q < s1 && keys[q] == T;
     }
+    int tl2, te2;
+    int xl = rl + block_excl_scan(cl, warp_sums, &tl2);
+    int xe = re + block_excl_scan(ce, warp_sums, &te2);
+    int c = o < s1 ? lower_bound(mpos, lc, o) : 0;
+#pragma unroll
+    for (int q = 0; q < kSlots; ++q) {
+      if (o + q >= s1) break;
+      const int32_t v = uni.at(o + q, c);
+      if (keys[q] < T) {
+        a.out[xl + min(xe, need)] = v;
+        ++xl;
+      } else if (keys[q] == T) {
+        if (xe < need) a.out[xl + xe] = v;
+        ++xe;
+      }
+    }
+    rl += tl2;
+    re += te2;
   }
 }
 
-int n_tiles(int M) { return (M + kTile - 1) / kTile; }
+// Candidate slots in shared memory: a power of 2 (the bitonic sort's).
+int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
 
 }  // namespace
 
 extern "C" {
 
-// int32 words of scratch that ssu_dedupe_evict needs for (rn, nc).
-long long ssu_scratch_words(int rn, int nc) {
-  int M = rn + nc;
-  return kStateWords + kHistWords + (long long)M + (nc > 0 ? nc : 1) +
-         2LL * n_tiles(M);
+// int32 words of scratch that ssu_dedupe_evict needs for nc candidates.
+long long ssu_scratch_words(int nc) {
+  return (long long)pow2_at_least(nc) + kMetaWords + kHistWords + 2 * kMaxGrid;
 }
 
-// buf (rn,) i32 sorted + EMPTY-padded, cand (nc,) i32, scores (rn+nc,) f32
-// -> out (rn,) i32 sorted.  scratch: ssu_scratch_words(rn, nc) int32 words.
+// buf (rn,) i32 sorted + EMPTY-padded, cand (nc,) i32 in any order,
+// scores (rn+nc,) f32 -> out (rn,) i32 sorted.  scratch:
+// ssu_scratch_words(nc) int32 words, nothing in it read before the
+// kernel writes it.  One cooperative launch.
 int ssu_dedupe_evict(const void* buf, const void* cand, const void* scores,
                      void* out, void* scratch, int rn, int nc, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int M = rn + nc;
-  const int nb = n_tiles(M);
-  int P = 1;
-  while (P < nc) P <<= 1;
-  int32_t* w = (int32_t*)scratch;
-  State* st = (State*)w;
-  uint32_t* hist = (uint32_t*)(w + kStateWords);
-  int32_t* combined = w + kStateWords + kHistWords;
-  int32_t* cm_live = combined + M;
-  int32_t* blk_less = cm_live + (nc > 0 ? nc : 1);
-  int32_t* blk_eq = blk_less + nb;
-  const int32_t* b = (const int32_t*)buf;
-  const float* sc = (const float*)scores;
-
-  cudaMemsetAsync(w, 0, (kStateWords + kHistWords) * sizeof(int32_t), s);
-  ssu_cand_kernel<<<1, kThreads, P * sizeof(int32_t), s>>>(
-      b, (const int32_t*)cand, rn, nc, P, st, cm_live, combined);
-  ssu_merge_kernel<<<(M + 255) / 256, 256, 0, s>>>(b, st, cm_live, combined, M);
-  int hist_blocks = (M + kHistThreads - 1) / kHistThreads;
-  if (hist_blocks > 1024) hist_blocks = 1024;
-  for (int pass = 0; pass < 4; ++pass) {
-    const int shift = 24 - 8 * pass;
-    ssu_hist_kernel<<<hist_blocks, kHistThreads, 0, s>>>(
-        combined, sc, st, hist + 256 * pass, M, shift);
-    ssu_pick_kernel<<<1, 32, 0, s>>>(st, hist + 256 * pass, shift);
+  if (nc > kMaxCand || rn < 1) return (int)cudaErrorInvalidValue;
+  const int P = pow2_at_least(nc);
+  const size_t smem = 3 * (size_t)P * sizeof(int32_t);
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  // the grid for (device, P): as many blocks as fit on the card at once
+  static int grid_of[64][14];
+  int log_p = 0;
+  while ((1 << log_p) < P) ++log_p;
+  int grid = dev < 64 ? grid_of[dev][log_p] : 0;
+  if (grid == 0) {
+    // dynamic shared memory past what a block gets without opting in
+    e = cudaFuncSetAttribute(ssu_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)(3 * kMaxCand * sizeof(int32_t)));
+    if (e != cudaSuccess) return (int)e;
+    int per_sm = 0, sms = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ssu_kernel,
+                                                      kThreads, smem);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    grid = per_sm < kBlocksPerSM ? per_sm * sms : kBlocksPerSM * sms;
+    if (grid > kMaxGrid) grid = kMaxGrid;
+    if (grid < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    if (dev < 64) grid_of[dev][log_p] = grid;
   }
-  ssu_count_kernel<<<nb, kThreads, 0, s>>>(combined, sc, st, blk_less, blk_eq, M);
-  ssu_scan_blocks_kernel<<<1, kThreads, 0, s>>>(st, blk_less, blk_eq, nb);
-  ssu_write_kernel<<<nb, kThreads, 0, s>>>(combined, sc, st, blk_less, blk_eq,
-                                          (int32_t*)out, rn, M);
+  int32_t* w = (int32_t*)scratch;
+  Params p{(const int32_t*)buf, (const int32_t*)cand, (const float*)scores,
+           (int32_t*)out, w, w + P, (uint32_t*)(w + P + kMetaWords),
+           w + P + kMetaWords + kHistWords, rn, nc, P};
+  void* args[] = {&p};
+  e = cudaLaunchCooperativeKernel((const void*)ssu_kernel, grid, kThreads,
+                                  args, smem, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

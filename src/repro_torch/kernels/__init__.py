@@ -54,3 +54,12 @@ def check_launch(rc: int, name: str) -> None:
 def stream_of(t: torch.Tensor) -> int:
     """The raw handle of the current stream on ``t``'s device."""
     return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def launch_on(dev: int, fn, *args):
+    """``fn(*args)`` with CUDA device ``dev`` current (a host module's
+    launcher runs on the current device)."""
+    if dev == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(dev):
+        return fn(*args)

@@ -7,7 +7,7 @@ plain C interface (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -Xptxas -v -o lib<name>.so <name>.cu
 
 A ``csrc/<name>.cpp`` is a kernel's host side where the host path is the
-kernel's cost (``embedding_bag_host.cpp``): the host C++ compiler builds
+kernel's cost (``launch_host.cpp``): the host C++ compiler builds
 it against PyTorch's headers and libraries into the Python module
 ``<name>``, and ``load_module`` imports it.
 

@@ -15,41 +15,17 @@ one zeroed allocation.
 
 The kernels' work is a few microseconds, so a call costs what its host
 path costs: the checks of every table, the allocation and the launch run
-in the C++ module ``csrc/embedding_bag_host.cpp``, which takes the list of
+in the C++ host module ``csrc/launch_host.cpp``, which takes the list of
 tables in one crossing and calls the CUDA launchers whose addresses it was
 given once.  The tables' pointers and row counts go to the kernel by
 value; nothing is cached across calls.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from repro_torch.kernels import (LAUNCHES, _build, on_card, ref, require,
-                                 stream_of)
-
-_host = None
-
-
-def _module():
-    """The C++ host module, bound to the CUDA launchers (first use)."""
-    global _host
-    if _host is None:
-        lib = _build.load("embedding_bag", {})
-        host = _build.load_module("embedding_bag_host")
-        host.bind(*(ctypes.cast(getattr(lib, fn), ctypes.c_void_p).value
-                    for fn in ("embedding_bags_fwd_launch",
-                               "embedding_bags_bwd_launch")))
-        _host = host
-    return _host
-
-
-def _launch(dev: int, fn, *args):
-    if dev == torch.cuda.current_device():
-        return fn(*args)
-    with torch.cuda.device(dev):
-        return fn(*args)
+from repro_torch.kernels import (LAUNCHES, _host, launch_on, on_card, ref,
+                                 require, stream_of)
 
 
 def forward(tables, sparse: torch.Tensor) -> torch.Tensor:
@@ -59,8 +35,8 @@ def forward(tables, sparse: torch.Tensor) -> torch.Tensor:
     require(len(tables) > 0 and tables[0].is_cuda, "forward launches a "
             "CUDA kernel: the tables must be on a CUDA device")
     first = tables[0]
-    out = _launch(first.get_device(), _module().forward, tables, sparse,
-                  stream_of(first))
+    out = launch_on(first.get_device(), _host.module().embedding_bags_forward,
+                    tables, sparse, stream_of(first))
     LAUNCHES["embedding_bag"] += 1
     return out
 
@@ -78,8 +54,9 @@ def backward(grad_out: torch.Tensor, sparse: torch.Tensor,
     strides; rows contiguous and 16-byte aligned) by atomic adds."""
     require(grad_out.is_cuda, "backward launches a CUDA kernel: grad_out "
             "must be on a CUDA device")
-    grads = _launch(grad_out.get_device(), _module().backward, grad_out,
-                    sparse, list(rows), stream_of(grad_out))
+    grads = launch_on(grad_out.get_device(),
+                      _host.module().embedding_bags_backward, grad_out,
+                      sparse, list(rows), stream_of(grad_out))
     LAUNCHES["embedding_bag_backward"] += 1
     return grads
 

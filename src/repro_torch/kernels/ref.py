@@ -104,7 +104,9 @@ def tracker_select(counts, indices, k: int, seg_size: int = 512):
     k = min(k, seg)
     flat = indices.reshape(-1).long()
     flat = flat[(flat >= 0) & (flat < N)]
-    folded = counts.long() + torch.bincount(flat, minlength=N)
+    # int32 counters: the fold wraps as the reference's int32 adds do
+    folded = (counts.long() + torch.bincount(flat, minlength=N)).to(
+        torch.int32).long()
     padded = torch.full((n_seg * seg,), -1, dtype=torch.long,
                         device=counts.device)
     padded[:N] = folded
@@ -121,14 +123,20 @@ def ssu_dedupe_evict(buf, cand, scores):
     """SSU dedupe + random-evict (exact-match target).
 
     buf:    (rn,) int32 sorted ascending, EMPTY-padded at the end.
-    cand:   (nc,) int32 candidates (EMPTY-padded).
+    cand:   (nc,) int32 candidates in any order, repeats allowed (EMPTY
+            entries are padding).  Their sorted ``unique``, EMPTY-padded
+            back to nc, is the reference's deduped candidate list, so on
+            deduped input this is the reference's function unchanged.
     scores: (rn + nc,) float keep-scores for the sorted union.
 
     Returns the new (rn,) sorted buffer: candidates already present are
     dropped, then the rn best (lowest-score) live entries survive, ties
     to the lower position.
     """
-    rn = buf.shape[0]
+    rn, nc = buf.shape[0], cand.shape[0]
+    uniq = torch.unique(cand)
+    cand = torch.full((nc,), EMPTY, dtype=torch.int32, device=cand.device)
+    cand[:uniq.shape[0]] = uniq
     cand = torch.where(torch.isin(cand, buf), EMPTY, cand)
     combined = torch.sort(torch.cat([buf, cand])).values
     score = torch.where(combined != EMPTY, scores, float("inf"))

@@ -3,9 +3,9 @@
 Replaces ``repro.kernels.tracker_select.tracker_select`` (Pallas); the CUDA
 source is ``csrc/tracker_select.cu``, which says what bounds it.  The TPU
 version needed ``seg`` to be a multiple of the 128-wide lane dimension; on
-this card any ``seg`` works (one block per segment, ``seg*4`` bytes of
-shared memory), so the only limit is the 48 KB of static shared memory a
-block gets without opting in.
+this card any ``seg`` up to ``MAX_SEG`` works: a team of one warp (``seg``
+<= 512, the main path) up to 32 warps holds a segment in registers, 16
+counters a thread, so ``MAX_SEG`` is 32 * 32 * 16 rows.
 
 ``autotune_seg_size`` times the candidate segment widths on the device
 the caller names: CUDA events on the card, the host clock on the CPU.
@@ -18,14 +18,10 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.kernels import (LAUNCHES, _build, check_launch, on_card,
-                                 ref, require, stream_of)
+from repro_torch.kernels import (LAUNCHES, _host, launch_on,
+                                 on_card, ref, require, stream_of)
 
-MAX_SEG = 48 * 1024 // 4
-
-_SIGS = {"tracker_select": (_build.I, (
-    _build.P, _build.P, _build.LL, _build.P, _build.P, _build.LL, _build.I,
-    _build.I, _build.P))}
+MAX_SEG = 32 * 32 * 16      # a 1024-thread team, 16 counters a thread
 
 
 def tracker_select(counts: torch.Tensor, indices: torch.Tensor, k: int,
@@ -34,36 +30,16 @@ def tracker_select(counts: torch.Tensor, indices: torch.Tensor, k: int,
     (may be empty) -> (row_ids (n_seg*k,) int32, new_counts (N,) int32).
 
     Row ids reaching past N are padding-segment picks; callers drop them.
-    The caller's ``counts`` are left as they were."""
+    The caller's ``counts`` are left as they were.  The checks (contiguous
+    1-D int32 on one device, 1 <= k, seg <= ``MAX_SEG``), allocation and
+    launch run in the C++ host module."""
     require(counts.is_cuda, "tracker_select launches a CUDA kernel: counts "
             "must be on a CUDA device")
-    require(counts.dtype == torch.int32 and indices.dtype == torch.int32,
-            "counts and indices must be int32")
-    require(counts.dim() == 1 and counts.is_contiguous(),
-            "counts must be a contiguous (N,) tensor")
-    require(indices.dim() == 1 and indices.is_contiguous(),
-            "indices must be a contiguous 1-D tensor")
-    require(indices.device == counts.device,
-            "indices must lie on the counts' device")
-    (N,) = counts.shape
-    seg = min(seg_size, max(N, 1))
-    n_seg = -(-N // seg)
-    k = min(k, seg)
-    require(k >= 1, f"k must be >= 1, got {k}")
-    require(seg <= MAX_SEG, f"seg_size {seg} needs more than 48 KB of "
-            f"shared memory (max {MAX_SEG})")
-    ids = torch.empty(n_seg * k, dtype=torch.int32, device=counts.device)
-    new_counts = torch.empty_like(counts)
-    if N == 0:
-        return ids, new_counts
-    lib = _build.load("tracker_select", _SIGS)
-    with torch.cuda.device(counts.device):
-        rc = lib.tracker_select(counts.data_ptr(), indices.data_ptr(),
-                                indices.numel(), new_counts.data_ptr(),
-                                ids.data_ptr(), N, seg, k, stream_of(counts))
-    check_launch(rc, "tracker_select")
-    LAUNCHES["tracker_select"] += 1
-    return ids, new_counts
+    out = launch_on(counts.get_device(), _host.module().tracker_select,
+                    counts, indices, k, seg_size, stream_of(counts))
+    if counts.shape[0]:
+        LAUNCHES["tracker_select"] += 1
+    return out
 
 
 def autotune_seg_size(n_rows: int, k: int,

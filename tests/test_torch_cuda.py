@@ -7,9 +7,11 @@ inside the ``card`` fixture, never at import).  On a GPU machine:
 
 Edge shapes the full-width smoke run does not reach: 1 to 26 tables of
 ragged row counts with out-of-range ids in one embedding launch, ragged
-segments, k > seg, empty and invalid pending ids, no candidates, a
-reservoir that spans several compaction tiles, more candidates than one
-block has threads; for the LM path, head dims 32-256, MQA/GQA, windows,
+segments, seg from 7 to MAX_SEG, k > seg and k = seg, ties everywhere,
+counts near INT32_MAX, N < seg, empty and invalid pending ids; raw
+(unsorted, repeated) candidates, none and 8,192 of them, a one-slot
+reservoir, overflow with tied and signed-zero scores, a full reservoir
+that holds every candidate; for the LM path, head dims 32-256, MQA/GQA, windows,
 softcaps, Skv > Sq, ragged lengths, f32 and bf16, the bf16 kernel's tile
 edges, and the reduced models against the CPU.
 """
@@ -18,6 +20,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import LAUNCHES, ops, ref
+from repro_torch.kernels.tracker_select import MAX_SEG
 
 pytestmark = pytest.mark.card
 
@@ -134,13 +137,48 @@ def test_embedding_bags_kernel_refuses(card):
                                          device=card))
 
 
-@pytest.mark.parametrize("N,M,k,seg", [(1000, 300, 25, 256), (7, 3, 2, 512),
-                                       (512, 0, 10, 128), (513, 11, 4, 256),
-                                       (100, 50, 100, 512), (300, 40, 700, 64),
-                                       (100_003, 5000, 64, 2048)])
-def test_tracker_select_kernel(card, N, M, k, seg):
+def _counts(rng, N, dist):
+    """Counters of one shape of skew: ``uniform`` 0..4 (many ties),
+    ``equal`` (ties everywhere), ``zipf`` (mostly 0), ``near_max`` (within
+    3 of INT32_MAX)."""
+    if dist == "uniform":
+        c = rng.integers(0, 5, N)
+    elif dist == "equal":
+        c = np.full(N, 3)
+    elif dist == "zipf":
+        c = np.minimum(rng.zipf(1.2, N) - 1, 1000)
+    else:
+        c = 2 ** 31 - 1 - rng.integers(0, 3, N)
+    return c.astype(np.int32)
+
+
+_TS_CASES = [
+    # the earlier cases (uniform counters), ids as before
+    *(pytest.param(N, M, k, seg, "uniform", id=f"{N}-{M}-{k}-{seg}")
+      for N, M, k, seg in [(1000, 300, 25, 256), (7, 3, 2, 512),
+                           (512, 0, 10, 128), (513, 11, 4, 256),
+                           (100, 50, 100, 512), (300, 40, 700, 64),
+                           (100_003, 5000, 64, 2048)]),
+    # the redesign's edges: seg 7, 33, 512, 2048, MAX_SEG; k = seg; ties
+    # everywhere; Zipf counts, mostly 0; counts near INT32_MAX; N < seg
+    (1000, 30, 3, 7, "uniform"), (1000, 30, 7, 7, "equal"),
+    (5000, 100, 5, 33, "zipf"), (990, 0, 33, 33, "uniform"),
+    (100_000, 0, 64, 512, "zipf"), (100_000, 2048, 64, 512, "zipf"),
+    (10_000, 0, 64, 512, "equal"), (2048, 0, 512, 512, "equal"),
+    (10_000, 0, 64, 512, "near_max"), (9000, 0, 64, 2048, "equal"),
+    # pending ids fold counters near INT32_MAX past it (int32 wrap)
+    (10_000, 2048, 64, 512, "near_max"), (9000, 3000, 64, 2048, "near_max"),
+    (20_000, 0, 2048, 2048, "zipf"), (700, 10, 64, 2048, "uniform"),
+    (40_000, 100, 300, MAX_SEG, "uniform"),
+    (20_000, 0, MAX_SEG, MAX_SEG, "zipf"), (300, 10, 64, 512, "zipf"),
+    (1, 0, 1, 512, "uniform"),
+]
+
+
+@pytest.mark.parametrize("N,M,k,seg,dist", _TS_CASES)
+def test_tracker_select_kernel(card, N, M, k, seg, dist):
     rng = np.random.default_rng(N + M)
-    counts = torch.from_numpy(rng.integers(0, 5, N).astype(np.int32)).to(card)
+    counts = torch.from_numpy(_counts(rng, N, dist)).to(card)
     pend = torch.from_numpy(rng.integers(-20, N + 20, M).astype(np.int32)
                             ).to(card)
     got_i, got_c = ops.tracker_select(counts, pend, k, seg_size=seg)
@@ -148,28 +186,65 @@ def test_tracker_select_kernel(card, N, M, k, seg):
     assert torch.equal(got_i, want_i) and torch.equal(got_c, want_c)
 
 
-@pytest.mark.parametrize("rn,nc,live,tied", [(16, 12, 13, False),
-                                             (32, 24, 32, False),
-                                             (32, 24, 32, True),
-                                             (8, 0, 8, False),
-                                             (10_000, 300, 10_000, False),
-                                             (10_000, 300, 4_000, False),
-                                             (20_000, 3000, 20_000, True)])
-def test_ssu_dedupe_evict_kernel(card, rn, nc, live, tied):
+_SSU_CASES = [
+    # the earlier cases (candidates deduped and EMPTY-padded by the test)
+    *(pytest.param(rn, nc, live, tied, "unique",
+                   id=f"{rn}-{nc}-{live}-{tied}")
+      for rn, nc, live, tied in [(16, 12, 13, False), (32, 24, 32, False),
+                                 (32, 24, 32, True), (8, 0, 8, False),
+                                 (10_000, 300, 10_000, False),
+                                 (10_000, 300, 4_000, False),
+                                 (20_000, 3000, 20_000, True)]),
+    # raw candidates (unsorted, repeated), as ssu_update now passes them
+    (64, 48, 60, False, "raw"), (10_000, 300, 4_000, False, "raw"),
+    (10_000, 300, 10_000, True, "raw"),
+    # no candidates; the most candidates
+    (100, 0, 40, False, "raw"), (20_000, 8192, 20_000, False, "raw"),
+    (1000, 8192, 500, False, "unique"),
+    # a one-slot reservoir
+    (1, 5, 0, False, "raw"), (1, 3, 1, False, "raw"), (1, 0, 1, False, "raw"),
+    # overflow with -0.0 and +0.0 keep-scores (they tie)
+    (32, 24, 32, False, "signed_zero"), (5000, 600, 5000, False, "signed_zero"),
+    # a full reservoir that already holds every candidate
+    (10_000, 300, 10_000, False, "all_present"),
+]
+
+
+@pytest.mark.parametrize("rn,nc,live,tied,kind", _SSU_CASES)
+def test_ssu_dedupe_evict_kernel(card, rn, nc, live, tied, kind):
     rng = np.random.default_rng(rn + nc)
     EMPTY = ref.EMPTY
     buf = np.full(rn, EMPTY, np.int32)
     buf[:live] = np.sort(rng.choice(10 * rn, size=live, replace=False))
-    c = rng.choice(10 * rn, size=nc).astype(np.int32)
-    c[: nc // 4] = rng.choice(buf[:live], size=nc // 4)
-    u = np.unique(c)
-    cand = np.full(nc, EMPTY, np.int32)
-    cand[:u.size] = u
+    if kind == "all_present":
+        c = rng.choice(buf[:live], size=nc).astype(np.int32)
+    else:
+        c = rng.choice(10 * rn, size=nc).astype(np.int32)
+        if live:
+            c[: nc // 4] = rng.choice(buf[:live], size=nc // 4)
+    if kind == "raw":
+        c[nc // 2:] = rng.choice(c[:max(nc // 2, 1)], size=nc - nc // 2)
+        cand = c                                    # unsorted, repeated
+    else:
+        u = np.unique(c)
+        cand = np.full(nc, EMPTY, np.int32)
+        cand[:u.size] = u
     scores = rng.uniform(size=rn + nc).astype(np.float32)
     if tied:
         scores = np.floor(scores * 8) / 8
+    if kind == "signed_zero":
+        scores = np.where(rng.uniform(size=rn + nc) < 0.5, np.float32(-0.0),
+                          np.float32(0.0)).astype(np.float32)
+        scores[::5] = 0.5
     args = [torch.from_numpy(a).to(card) for a in (buf, cand, scores)]
-    assert torch.equal(ops.ssu_dedupe_evict(*args), ref.ssu_dedupe_evict(*args))
+    got = ops.ssu_dedupe_evict(*args)
+    assert torch.equal(got, ref.ssu_dedupe_evict(*args))
+    if kind == "raw":             # the same as on the deduped, padded form
+        u = np.unique(cand)
+        dedup = np.full(nc, EMPTY, np.int32)
+        dedup[:u.size] = u
+        assert torch.equal(got, ops.ssu_dedupe_evict(
+            args[0], torch.from_numpy(dedup).to(card), args[2]))
 
 
 def test_emulator_on_the_card_matches_the_cpu_path(card):
