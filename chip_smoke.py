@@ -20,9 +20,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``ssu_dedupe_evict`` takes raw candidates (repeats, draw order) and is
    timed without overflow (the path's steady state, the one in the
    kernels line) and with it; the profiler counts its CUDA kernels per
-   call (more than 2 in the steady state fails), and one full-width
-   ``ssu_update(..., backend="kernel")`` runs under
-   ``torch.cuda.set_sync_debug_mode("error")`` (a host sync fails).
+   call (more than 2 in the steady state fails); past one tile (16,384 and
+   65,536 candidates, half-full and full reservoir) it must equal its
+   plain version under ``torch.equal`` and is timed beside its bound; and
+   full-width ``ssu_update(..., backend="kernel")`` calls with 256 and
+   16,384 candidates run under ``torch.cuda.set_sync_debug_mode("error")``
+   (a host sync fails).
    ``tracker_select``'s line adds ``torch.topk`` over the (n_seg, seg)
    view as a yardstick (selection only: no tie order, no clearing).  Both
    tracker kernels also print their time per call over 100 calls back to
@@ -62,8 +65,12 @@ freed first):
 2b. ``flash_attention`` and ``rglru_scan`` against their plain versions at
    the path's shapes: (2, 10, 4096, 256) bf16 queries over (2, 1, 4096,
    256) keys with window 2048, gemma2's (1, 8, 4096, 256) over (1, 4,
-   4096, 256) global with softcap 50, the reduced f32 case; the scan at
-   (2, 4096, 2560) f32 and bf16 (bit for bit).  bf16 attention outputs
+   4096, 256) global with softcap 50, the reduced f32 case, and phase 4b's
+   f32 prefill shape (2, 10, 2176, 256) over (2, 1, 2176, 256) (the f32
+   FMA kernel at full width, beside f32 SDPA with TF32 off); the scan at
+   (2, 4096, 2560) f32 and bf16 (bit for bit), with its own device time
+   (profiler) and, as a yardstick, one ``torch.add`` over the same
+   tensors, which moves the same bytes.  bf16 attention outputs
    must agree within 1e-2 * |plain| + 4e-3 (one bf16 rounding and some),
    and the plain version with its window one key tile (64) short must
    fall outside that limit.  Bounds: the unmasked band's flops over the peak
@@ -115,9 +122,8 @@ FLEET = {"sharded_save": True, "delta_saves": True, "hash_backend": "kernel",
          "transport": "inproc"}
 # the LM serving path (phases 2b-4b): RecurrentGemma-2B at full width; the
 # workload of phase 3b is repro_torch.launch.profile_serve's (ARCH,
-# PREFILL_SHAPE, DECODE_*), imported in main()
+# PREFILL_SHAPE, PREFILL_REPS, DECODE_*), imported in main()
 AGREE_SEQ = 2176             # prefill vs decode: past the window, ring wraps
-PREFILL_REPS = 5             # prefill time: the median of this many forwards
 # flash_attention cases of phase 2b: name, (B, Hq, Hkv, S, hd), dtype,
 # window, softcap, (rtol, atol); the first is the serving path's own.  The
 # kernel and the plain version read the same inputs and both sum in f32,
@@ -128,7 +134,11 @@ FLASH_CASES = (
     ("gemma2-2b global", (1, 8, 4, 4096, 256), torch.bfloat16, 0, 50.0,
      (1e-2, 4e-3)),
     ("recurrentgemma-2b reduced", (2, 4, 1, 128, 64), torch.float32, 64, 0.0,
-     (0.0, 2e-5)))
+     (0.0, 2e-5)),
+    # phase 4b's f32 prefill: the FMA kernel at full width (the card tests'
+    # f32 limit)
+    ("recurrentgemma-2b f32 (phase 4b)", (2, 10, 1, AGREE_SEQ, 256),
+     torch.float32, 2048, 0.0, (2e-5, 2e-5)))
 KEY_TILE = 64                # keys per tile of csrc/flash_attention_bf16.cu
 SCAN_SHAPE = (2, 4096, 2560)  # the RG-LRU layers' (B, S, width) at prefill
 SCRATCH = Path(__file__).resolve().parent / "build" / "chip_smoke"
@@ -244,16 +254,16 @@ def kernels_per_call(fn, reps: int = 10):
     return n / reps if n else None
 
 
-def ssu_update_without_sync(dev, buf):
+def ssu_update_without_sync(dev, buf, batch: int = B):
     """One ``ssu_update(..., backend="kernel")`` at full width (the largest
-    table's reservoir; its column of a (512, 26, 1) batch, strided as the
-    emulator passes it, at period 2) under
+    table's reservoir; its column of a (batch, 26, 1) batch, strided as the
+    emulator passes it, at period 2: batch / 2 candidates) under
     ``torch.cuda.set_sync_debug_mode("error")``: any host sync in it fails
     the run."""
     from repro_torch.core import trackers as trk
     from repro_torch.kernels import LAUNCHES
     rng = np.random.default_rng(4)
-    sparse = torch.from_numpy(zipf_ids(rng, N_BIG, (B, 26, 1))).to(dev)
+    sparse = torch.from_numpy(zipf_ids(rng, N_BIG, (batch, 26, 1))).to(dev)
     ids = sparse[:, 0, :]
     state = {"buf": buf, "gen": torch.Generator(device=dev).manual_seed(5)}
     trk.ssu_update(dict(state), ids, 2, backend="kernel")        # warm
@@ -271,7 +281,8 @@ def ssu_update_without_sync(dev, buf):
         lambda: trk.ssu_update(dict(state), ids, 2, backend="kernel"))
     ok = bool((new["buf"][1:] >= new["buf"][:-1]).all())
     print(f"ssu_update(backend='kernel') at rn={buf.shape[0]}, ids "
-          f"{tuple(ids.shape)}, period 2: no host sync (sync debug mode "
+          f"{tuple(ids.shape)}, period 2 ({ids.shape[0] // 2} candidates): "
+          f"no host sync (sync debug mode "
           f"'error'); ssu_dedupe_evict launches={launched}; CUDA kernels "
           f"per update={n_kern} (profiler: the draw, the strided copy, the "
           f"kernel); output sorted={ok}")
@@ -558,7 +569,43 @@ def phase_kernels(dev, eb, ts, sd, ref):
                 fail(f"ssu_dedupe_evict issued {n_kern} CUDA kernels in the "
                      f"steady state (at most 2)")
             rows["ssu_dedupe_evict"] = row
+    # past one tile (TILE = 8,192 candidates), as LM training (8 x 4,096
+    # tokens at period 2) or a DLRM batch above 16,384 samples sends them:
+    # sorted a tile at a time and ranked across tiles in the same launch
+    for n_cand in (2 * sd.TILE, 8 * sd.TILE):
+        for name, live in (("half full", rn // 2), ("full (overflow)", rn)):
+            buf_np = reservoir(live)
+            cand_np = zipf_ids(rng, N_BIG, (n_cand,))
+            cand_np[: n_cand // 4] = rng.choice(buf_np[:live], size=n_cand // 4)
+            lc = np.setdiff1d(cand_np, buf_np).size
+            overflow = live + lc > rn
+            nbytes = (live * 4 + n_cand * 4 + rn * 4 +
+                      (live + lc) * 4 * overflow)
+            buf = torch.from_numpy(buf_np).to(dev)
+            cand = torch.from_numpy(cand_np).to(dev)
+            scores = torch.rand(rn + n_cand, generator=gen, device=dev)
+
+            def update():
+                return sd.ssu_dedupe_evict(buf, cand, scores)
+
+            got = update()
+            want = ref.ssu_dedupe_evict(buf, cand, scores)
+            equal = torch.equal(got, want)
+            t_b, _ = bound(nbytes)
+            ms = time_ms(update)
+            plain_ms = time_ms(lambda: ref.ssu_dedupe_evict(buf, cand, scores))
+            print(f"ssu_dedupe_evict nc={n_cand} ({-(-n_cand // sd.TILE)} "
+                  f"tiles) {name}: live={live + lc} rn={rn} "
+                  f"overflow={overflow} torch.equal={equal} (differing "
+                  f"slots: {int((got != want).sum())}); {nbytes} bytes "
+                  f"needed; ms={ms:.4f} (CUDA events, one call) "
+                  f"plain_ms={plain_ms:.4f} bound_ms={t_b:.5f}; CUDA kernels "
+                  f"per call={kernels_per_call(update)} (profiler)")
+            if not equal:
+                fail(f"ssu_dedupe_evict with {n_cand} candidates disagrees "
+                     f"with its plain version")
     ssu_update_without_sync(dev, timed[False][0])
+    ssu_update_without_sync(dev, timed[False][0], batch=4 * sd.TILE)
     for name, r in rows.items():
         print(f"{name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) "
@@ -918,11 +965,20 @@ def phase_lm_kernels(dev, ops, ref):
                    ms=time_ms(lambda: ops.rglru_scan(a, b)),
                    plain_ms=time_ms(lambda: ref.rglru_scan(a, b)),
                    bound_ms=t_b, bound_by=by, library_ms=None)
+        own, _ = device_ms(lambda: ops.rglru_scan(a, b), "rglru_scan_kernel")
+        # a yardstick, not the same function: one elementwise pass that
+        # moves the same bytes (reads a and b, writes one output)
+        h = torch.empty_like(a)
+        add_ms = time_ms(lambda: torch.add(a, b, out=h))
         print(f"rglru_scan {tuple(a.shape)} {str(dtype)[6:]}: "
               f"max_abs_err={err:.3e} (bit-exact expected) "
               f"differing={int((got != want).sum())} ms={row['ms']:.4f} "
-              f"plain_ms={row['plain_ms']:.4f} bound_ms={t_b:.5f} ({by}) "
-              f"library_ms=None (no PyTorch call scans a recurrence)")
+              f"(CUDA events, one call) kernel device ms="
+              f"{'not measured' if own is None else f'{own:.4f}'} "
+              f"(profiler) plain_ms={row['plain_ms']:.4f} bound_ms="
+              f"{t_b:.5f} ({by}) library_ms=None (no PyTorch call scans a "
+              f"recurrence); yardstick torch.add(a, b) over the same "
+              f"tensors ms={add_ms:.4f}")
         if not torch.equal(got, want):
             fail("rglru_scan disagrees with its plain version")
         rows.setdefault("rglru_scan", row)         # f32, as the path runs it
@@ -971,7 +1027,7 @@ def phase_serving(dev, kernels, cfg):
     done, stats = serve(cfg, reqs, batch=4, gen=32, params=params, device=dev)
     counts = dict(kernels.LAUNCHES)
 
-    times = [prefill_s] + [prefill()[0] for _ in range(PREFILL_REPS - 1)]
+    times = [prefill_s] + [prefill()[0] for _ in range(P.PREFILL_REPS - 1)]
     prefill_s = statistics.median(times)
     decode = P.decode_past_window(params, cfg, dev, gen)
     step_s = []
@@ -983,7 +1039,7 @@ def phase_serving(dev, kernels, cfg):
     step_ms = statistics.median(step_s[P.DECODE_WARMUP:]) * 1e3
 
     n_tok = P.PREFILL_SHAPE[0] * P.PREFILL_SHAPE[1]
-    print(f"prefill {arch} {P.PREFILL_SHAPE}: median of {PREFILL_REPS} "
+    print(f"prefill {arch} {P.PREFILL_SHAPE}: median of {P.PREFILL_REPS} "
           f"forwards {prefill_s * 1e3:.1f} ms (each: "
           f"{', '.join(f'{t * 1e3:.1f}' for t in times)}), "
           f"{n_tok / prefill_s:.0f} tokens/s, logits {shape} finite="

@@ -30,7 +30,6 @@ namespace {
 
 constexpr int64_t kMaxTables = 64;        // embedding_bag.cu
 constexpr int64_t kMaxSeg = 32 * 32 * 16;   // tracker_select.cu
-constexpr int64_t kMaxCand = 8192;          // ssu_dedupe.cu
 
 using ForwardLaunch = int (*)(const long long* ptrs, const long long* rows,
                               int n_tables, const void* idx, void* out,
@@ -216,8 +215,6 @@ at::Tensor ssu_dedupe_evict(const at::Tensor& buf, const at::Tensor& cand,
           "buf, cand and scores must be contiguous 1-D tensors on one device");
   const int64_t rn = buf.size(0), nc = cand.size(0);
   require(rn >= 1, "the reservoir must have at least one slot");
-  require(nc <= kMaxCand, "at most " + std::to_string(kMaxCand) +
-          " candidates, got " + std::to_string(nc));
   require(scores.size(0) == rn + nc, "scores must have rn + nc entries");
   require(rn + nc < (int64_t{1} << 31),
           "reservoir too large for int32 positions");

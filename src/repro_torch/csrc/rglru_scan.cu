@@ -7,30 +7,54 @@
 // Contract (src/repro/kernels/ref.py rglru_scan): a, b (B, S, w) of one
 // dtype (f32 or bf16), h_0 = 0, the carry in f32, h_t = a_t * h_{t-1} +
 // b_t with the product rounded before the sum (as the plain version's two
-// separate operations round), the output (B, S, w) in a's dtype.
-//
-// Design: one thread per (batch, channel), sequential over time.
-// Neighbouring threads take neighbouring channels, so every load and
-// store of a warp is one contiguous run.  The time loop runs in chunks of
-// kUnroll steps: the next chunk's a and b loads are issued before the
-// current chunk's chain of dependent multiply-adds, so their latency hides
-// behind it.
+// separate operations round), the output (B, S, w) in a's dtype, bit for
+// bit.  So each (batch, channel) keeps one sequential chain in that order:
+// a chunked two-pass scan would reassociate the products and change the
+// last bits.
 //
 // Bound on this card: bytes.  The function reads a and b and writes h
 // once each: 3 * B * S * w * itemsize, 251.7 MB at the RecurrentGemma-2B
-// prefill shape (2, 4096, 2560) in f32, 0.075 ms at 3.35 TB/s.  With one
-// thread per channel that shape has only 5,120 threads, so this kernel is
-// latency-bound: what keeps bytes in flight is the unrolled prefetch.  A
-// two-pass chunked scan (chunk carries, then a fix-up) would spread time
-// across more threads.
+// prefill shape (2, 4096, 2560) in f32, 0.075 ms at 3.35 TB/s.  But B * w
+// = 5,120 chains of S = 4,096 dependent steps each are all the
+// parallelism there is, and every step of a chain is a few instructions
+// on one thread: what sets the time is how few cycles a step costs and
+// how far ahead of the chains the loads run.
+//
+// Design: a block owns C adjacent channels of one batch row (C a multiple
+// of 8, chosen so that the B * ceil(w / C) blocks cover the SMs once:
+// 40 channels, 128 blocks at the prefill shape), one chain thread a
+// channel, plus four loader warps.  The loaders keep a ring of kStages
+// time tiles (kT steps x R channels of a and b) full with cp.async (16 or
+// 4 bytes a copy, whichever the rows' alignment allows; the ragged end
+// of a row is a copy of fewer source bytes; rows that are not 4-byte
+// aligned, bf16 with odd w, take plain loads), each tile announced on an
+// mbarrier once its copies land and handed back on another once the
+// chains have read it.  The chains never issue a copy.  The tile's layout
+// is fixed at compile time (64 x 64, or 16 x 256 for blocks of more than
+// 64 channels), so every shared-memory read is a constant offset and a
+// whole tile is one unrolled, branch-free run of steps, each group of 8
+// steps' a and b read while the previous group runs.  Each step's h goes
+// straight to device memory: a warp's 32 adjacent channels are one
+// contiguous store.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 32;  // one warp per block: spread over every SM
-constexpr int kUnroll = 16;
+constexpr int kStages = 4;          // tiles in the ring (kStages - 1 in flight)
+constexpr int kGroup = 8;           // chain steps read from a tile at once
+constexpr int kLoaders = 128;       // loader threads a block (four warps)
+constexpr int kMaxChains = 256;     // channels (chain threads) a block holds
+constexpr int kBarBytes = 128;      // the ring's mbarriers, before the ring
+constexpr int kMaxDev = 64;
+
+// A tile is kT(R) time steps of rows R elements apart (R >= the block's
+// channels): 64 x 64 or 16 x 256, so the ring is 128 KB in f32, 64 KB in
+// bf16, and every shared-memory address in a tile is a constant offset.
+template <int R>
+__host__ __device__ constexpr int tile_steps() { return R == 64 ? 64 : 16; }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -41,58 +65,250 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-template <typename T>
-__device__ __forceinline__ void load_chunk(const T* __restrict__ a,
-                                           const T* __restrict__ b,
-                                           long long t0, int S, int w,
-                                           float* av, float* bv) {
-#pragma unroll
-  for (int u = 0; u < kUnroll; ++u) {
-    if (t0 + u < S) {
-      av[u] = to_f32(a[(t0 + u) * w]);
-      bv[u] = to_f32(b[(t0 + u) * w]);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// cp.async of `bytes` (<= VEC) source bytes into a VEC-byte slot; the
+// rest of the slot is zero-filled.
+template <int VEC>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int bytes) {
+  const uint32_t d = smem_addr(dst);
+  if constexpr (VEC == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(bytes));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+                 "l"(src), "n"(VEC), "r"(bytes));
+  }
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar)) : "memory");
+}
+
+// One arrival on `bar` once this thread's cp.async copies so far have
+// landed.
+__device__ __forceinline__ void mbar_arrive_on_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar)) : "memory");
+}
+
+// returns once the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Elements a copy of a tile row: VEC bytes, or one element (plain loads).
+template <typename T, int VEC>
+__host__ __device__ constexpr int per_copy() {
+  return VEC > 0 ? VEC / (int)sizeof(T) : 1;
+}
+
+// Issue one loader thread's copies of a tile: rows [t0, t0 + tn) of
+// channels [c0, c0 + cn) of a and b (element offset `base` = (batch * S +
+// t0) * w + c0) into the tile's a and b halves, rows `row` elements
+// apart.  The thread copies column chunks k0, k0 + kstep, ... of rows r0,
+// r0 + rstep, ...  VEC = 0: plain loads.
+template <typename T, int VEC>
+__device__ __forceinline__ void load_tile(const T* __restrict__ a,
+                                          const T* __restrict__ b,
+                                          long long base, int tn, int cn,
+                                          int w, int row, int k0,
+                                          int kstep, int r0, int rstep,
+                                          T* sa, T* sb) {
+  constexpr int E = per_copy<T, VEC>();
+  for (int tt = r0; tt < tn; tt += rstep) {
+    for (int col = k0 * E; col < cn; col += kstep * E) {
+      const long long src = base + (long long)tt * w + col;
+      const int dst = tt * row + col;
+      if constexpr (VEC > 0) {
+        const int bytes = min(E, cn - col) * (int)sizeof(T);
+        cp_async<VEC>(sa + dst, a + src, bytes);
+        cp_async<VEC>(sb + dst, b + src, bytes);
+      } else {
+        sa[dst] = a[src];
+        sb[dst] = b[src];
+      }
     }
   }
 }
 
+// One step of a chain: h = a * h + b, the product rounded before the sum.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    rglru_scan_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                      T* __restrict__ h, int B, int S, int w) {
-  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= (long long)B * w) return;
-  const long long base = (idx / w) * S * w + idx % w;
-  a += base;
-  b += base;
-  h += base;
-  float av[kUnroll], bv[kUnroll], an[kUnroll], bn[kUnroll];
-  load_chunk(a, b, 0, S, w, av, bv);
-  float carry = 0.f;
-  for (long long t0 = 0; t0 < S; t0 += kUnroll) {
-    if (t0 + kUnroll < S) load_chunk(a, b, t0 + kUnroll, S, w, an, bn);
+__device__ __forceinline__ void step(float a, float b, float& carry, T*& o,
+                                     int w) {
+  carry = __fadd_rn(__fmul_rn(a, carry), b);
+  store(o, carry);
+  o += w;
+}
+
+// A whole tile of one chain (its a and b R elements apart), unrolled: each
+// group of kGroup steps' a and b are read before the previous group runs.
+template <typename T, int R>
+__device__ __forceinline__ void chain_tile(const T* sa, const T* sb,
+                                           float& carry, T*& o, int w) {
+  constexpr int kT = tile_steps<R>();
+  float xa[kGroup], xb[kGroup];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (t0 + u < S) {
-        carry = __fadd_rn(__fmul_rn(av[u], carry), bv[u]);
-        store(h + (t0 + u) * w, carry);
+  for (int u = 0; u < kGroup; ++u) {
+    xa[u] = to_f32(sa[u * R]);
+    xb[u] = to_f32(sb[u * R]);
+  }
+#pragma unroll
+  for (int t = 0; t < kT; t += kGroup) {
+    float ya[kGroup], yb[kGroup];
+    if (t + kGroup < kT) {
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        ya[u] = to_f32(sa[(t + kGroup + u) * R]);
+        yb[u] = to_f32(sb[(t + kGroup + u) * R]);
       }
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      av[u] = an[u];
-      bv[u] = bn[u];
+    for (int u = 0; u < kGroup; ++u) step(xa[u], xb[u], carry, o, w);
+    if (t + kGroup < kT) {
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        xa[u] = ya[u];
+        xb[u] = yb[u];
+      }
     }
   }
 }
 
-template <typename T>
-int launch(const void* a, const void* b, void* h, int B, int S, int w,
-           cudaStream_t s) {
-  const long long blocks = ((long long)B * w + kThreads - 1) / kThreads;
-  rglru_scan_kernel<T><<<(unsigned)blocks, kThreads, 0, s>>>(
+template <typename T, int VEC, int R>
+__global__ void __launch_bounds__(kMaxChains + kLoaders)
+    rglru_scan_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                      T* __restrict__ h, int S, int w, int C, int G) {
+  constexpr int kT = tile_steps<R>();
+  constexpr int kTile = kT * R;                         // elements of a (or b)
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);   // tile s landed
+  uint64_t* empty = full + kStages;                     // tile s consumed
+  T* ring = reinterpret_cast<T*>(smem + kBarBytes);     // [kStages][2][kT][R]
+  const int batch = blockIdx.x / G, g = blockIdx.x - batch * G;
+  const int c0 = g * C, cn = min(C, w - c0);
+  const int chains = blockDim.x - kLoaders;             // chain threads
+  const long long row0 = (long long)batch * S * w + c0;
+  const int n_tiles = (S + kT - 1) / kT;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, kLoaders);
+      mbar_init(empty + s, chains);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= chains) {          // loader warps: keep the ring full
+    const int lt = threadIdx.x - chains;
+    const int per_row = (cn + per_copy<T, VEC>() - 1) / per_copy<T, VEC>();
+    const int kstep = min(per_row, kLoaders), rstep = kLoaders / kstep;
+    const int k0 = lt % kstep, r0 = lt < rstep * kstep ? lt / kstep : kT;
+#pragma unroll 1
+    for (int k = 0; k < n_tiles; ++k) {
+      const int s = k % kStages;
+      if (k >= kStages) mbar_wait(empty + s, (k / kStages - 1) & 1);
+      T* sa = ring + s * 2 * kTile;
+      const int t0 = k * kT;
+      load_tile<T, VEC>(a, b, row0 + (long long)t0 * w, min(kT, S - t0), cn,
+                        w, R, k0, kstep, r0, rstep, sa, sa + kTile);
+      if constexpr (VEC > 0) mbar_arrive_on_copies(full + s);
+      else mbar_arrive(full + s);
+    }
+    if constexpr (VEC > 0) asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  const int j = threadIdx.x;            // chain threads: one channel each
+  float carry = 0.f;
+  T* o = h + row0 + j;
+#pragma unroll 1
+  for (int k = 0; k < n_tiles; ++k) {
+    const int s = k % kStages;
+    mbar_wait(full + s, (k / kStages) & 1);
+    const T* sa = ring + s * 2 * kTile + j;
+    const T* sb = sa + kTile;
+    const int tn = min(kT, S - k * kT);
+    if (j < cn) {
+      if (tn == kT) {
+        chain_tile<T, R>(sa, sb, carry, o, w);
+      } else {
+        for (int t = 0; t < tn; ++t)
+          step(to_f32(sa[t * R]), to_f32(sb[t * R]), carry, o, w);
+      }
+    }
+    mbar_arrive(empty + s);
+  }
+}
+
+template <typename T, int VEC, int R>
+int launch(const void* a, const void* b, void* h, int S, int w, int C, int G,
+           long long blocks, int dev, cudaStream_t s) {
+  static bool opted[kMaxDev];
+  constexpr size_t smem =
+      kBarBytes + (size_t)kStages * 2 * tile_steps<R>() * R * sizeof(T);
+  auto kernel = rglru_scan_kernel<T, VEC, R>;
+  if (dev >= kMaxDev || !opted[dev]) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < kMaxDev) opted[dev] = true;
+  }
+  const int threads = (C + 31) / 32 * 32 + kLoaders;
+  kernel<<<(unsigned)blocks, threads, smem, s>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(h),
-      B, S, w);
+      S, w, C, G);
   return (int)cudaGetLastError();
+}
+
+// The widest copy (16 or 4 bytes; 0 = plain loads) that every row of a
+// and b starts aligned to.  Block columns start at multiples of 8
+// elements, so the row stride and the base pointers decide.
+int vec_bytes(const void* a, const void* b, int w, int isz) {
+  const uintptr_t bits = (uintptr_t)a | (uintptr_t)b |
+                         (uintptr_t)((long long)w * isz);
+  return (bits & 15) == 0 ? 16 : (bits & 3) == 0 ? 4 : 0;
+}
+
+template <typename T, int VEC>
+int launch_layout(const void* a, const void* b, void* h, int B, int S, int w,
+                  int dev, int n_sm, cudaStream_t s) {
+  // channels a block: the B * G blocks cover the SMs about once
+  const int per_row = n_sm / B > 0 ? n_sm / B : 1;
+  int C = (w + per_row - 1) / per_row;
+  C = (C + 7) / 8 * 8;
+  if (C > kMaxChains) C = kMaxChains;
+  const int G = (w + C - 1) / C;
+  const long long blocks = (long long)B * G;
+  if (C <= 64)
+    return launch<T, VEC, 64>(a, b, h, S, w, C, G, blocks, dev, s);
+  return launch<T, VEC, 256>(a, b, h, S, w, C, G, blocks, dev, s);
+}
+
+template <typename T>
+int launch_vec(const void* a, const void* b, void* h, int B, int S, int w,
+               int dev, int n_sm, cudaStream_t s) {
+  switch (vec_bytes(a, b, w, (int)sizeof(T))) {
+    case 16: return launch_layout<T, 16>(a, b, h, B, S, w, dev, n_sm, s);
+    case 4: return launch_layout<T, 4>(a, b, h, B, S, w, dev, n_sm, s);
+    default: return launch_layout<T, 0>(a, b, h, B, S, w, dev, n_sm, s);
+  }
 }
 
 }  // namespace
@@ -100,13 +316,23 @@ int launch(const void* a, const void* b, void* h, int B, int S, int w,
 extern "C" {
 
 // a, b, h: contiguous (B, S, w), all f32 (bf16 == 0) or all bf16.
-// Returns a cudaError_t code (0 on success).
+// Returns a cudaError_t code (0 on success).  One launch.
 int rglru_scan(const void* a, const void* b, void* h, int B, int S, int w,
                int bf16, void* stream) {
   if (B <= 0 || S <= 0 || w <= 0) return 0;
+  static int sms[kMaxDev];
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  int n_sm = dev < kMaxDev ? sms[dev] : 0;
+  if (n_sm == 0) {
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < kMaxDev) sms[dev] = n_sm;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return launch<__nv_bfloat16>(a, b, h, B, S, w, s);
-  return launch<float>(a, b, h, B, S, w, s);
+  if (bf16) return launch_vec<__nv_bfloat16>(a, b, h, B, S, w, dev, n_sm, s);
+  return launch_vec<float>(a, b, h, B, S, w, dev, n_sm, s);
 }
 
 }  // extern "C"

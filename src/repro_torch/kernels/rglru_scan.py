@@ -1,16 +1,17 @@
 """The RG-LRU linear recurrence h_t = a_t * h_{t-1} + b_t on Hopper.
 
 Replaces ``repro.kernels.rglru_scan.rglru_scan`` (Pallas, forward only).
-The CUDA source ``csrc/rglru_scan.cu`` runs one thread per (batch,
-channel) sequentially over time with an f32 carry, and says what bounds
-it.
+The CUDA source ``csrc/rglru_scan.cu`` keeps one sequential f32 chain per
+(batch, channel), bit for bit the plain version's, and feeds it from a
+ring of time tiles in shared memory that asynchronous copies keep full;
+its header says what bounds it.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import (LAUNCHES, _build, check_launch, require,
-                                 stream_of)
+from repro_torch.kernels import (LAUNCHES, _build, check_launch, launch_on,
+                                 require, stream_of)
 
 _SIGS = {"rglru_scan": (_build.I, (_build.P, _build.P, _build.P, _build.I,
                                    _build.I, _build.I, _build.I, _build.P))}
@@ -34,9 +35,9 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if h.numel() == 0:
         return h
     lib = _build.load("rglru_scan", _SIGS)
-    with torch.cuda.device(a.device):
-        rc = lib.rglru_scan(a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S, w,
-                            int(a.dtype == torch.bfloat16), stream_of(a))
+    rc = launch_on(a.get_device(), lib.rglru_scan, a.data_ptr(), b.data_ptr(),
+                   h.data_ptr(), B, S, w, int(a.dtype == torch.bfloat16),
+                   stream_of(a))
     check_launch(rc, "rglru_scan")
     LAUNCHES["rglru_scan"] += 1
     return h

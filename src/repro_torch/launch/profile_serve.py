@@ -10,14 +10,17 @@ decode steps at ``DECODE_BATCH`` on an f32 decode state (as ``serve``
 holds it) sized for ``PREFILL_SHAPE[1]`` tokens, so each local layer's
 ring holds the full window and every step attends all of it: the work of
 a step at any context past the window.  Prints for each the host ms, the
-device busy ms and share, and the device time by kernel name.  Needs a
-GPU.
+device busy ms and share, and the device time by kernel name (the top
+15, and the port's own kernels wherever they rank).  Then it times
+``PREFILL_REPS`` unprofiled prefills (host clock around each, ending in a
+synchronize) and prints their median.  Needs a GPU.
 
 The constants below are the workload of ``chip_smoke.py`` phase 3b,
 which imports them.
 """
 from __future__ import annotations
 
+import statistics
 import time
 
 import torch
@@ -30,10 +33,12 @@ from repro_torch.models import transformer as T
 
 ARCH = "recurrentgemma-2b"
 PREFILL_SHAPE = (2, 4096)      # (batch, tokens): both pass the 2048 window
+PREFILL_REPS = 5               # prefill time: the median of this many
 DECODE_BATCH = 4
 DECODE_STEPS = 16
 DECODE_WARMUP = 4
 TOP = 15
+PORT_KERNELS = ("rglru_scan", "flash_fwd")   # listed wherever they rank
 
 
 def decode_past_window(params, cfg, dev, gen):
@@ -62,9 +67,10 @@ def _report(name, prof, wall_s, n):
     print(f"{name}: host {wall_ms / n:.3f} ms per call; device busy "
           f"{busy_ms / n:.3f} ms per call ({100 * busy_ms / wall_ms:.1f}% of "
           f"the window), {sum(r[2] for r in rows) / n:.0f} kernels per call")
-    for key, us, count in rows[:TOP]:
-        print(f"  {us / 1e3 / n:9.4f} ms  {100 * us / 1e3 / busy_ms:5.1f}%  "
-              f"x{count / n:<6.1f} {key[:90]}")
+    for i, (key, us, count) in enumerate(rows):
+        if i < TOP or any(k in key for k in PORT_KERNELS):
+            print(f"  {us / 1e3 / n:9.4f} ms  {100 * us / 1e3 / busy_ms:5.1f}%"
+                  f"  x{count / n:<6.1f} {key[:90]}")
 
 
 def _profiled(fn, n, dev):
@@ -104,6 +110,17 @@ def main() -> None:
                            dev)
     _report(f"decode step (batch {DECODE_BATCH}, f32 state, past the "
             f"window)", prof, wall, DECODE_STEPS)
+
+    times = []
+    for _ in range(PREFILL_REPS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        prefill(0)
+        torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"prefill {PREFILL_SHAPE} unprofiled: median of {PREFILL_REPS} "
+          f"{statistics.median(times):.3f} ms (each: "
+          f"{', '.join(f'{t:.3f}' for t in times)})")
 
 
 if __name__ == "__main__":

@@ -9,9 +9,11 @@ Edge shapes the full-width smoke run does not reach: 1 to 26 tables of
 ragged row counts with out-of-range ids in one embedding launch, ragged
 segments, seg from 7 to MAX_SEG, k > seg and k = seg, ties everywhere,
 counts near INT32_MAX, N < seg, empty and invalid pending ids; raw
-(unsorted, repeated) candidates, none and 8,192 of them, a one-slot
-reservoir, overflow with tied and signed-zero scores, a full reservoir
-that holds every candidate; for the LM path, head dims 32-256, MQA/GQA, windows,
+(unsorted, repeated) candidates, none, 8,192 (one tile) and up to 65,536
+of them (values repeated across tiles), a one-slot reservoir, overflow
+with tied and signed-zero scores, a full reservoir that holds every
+candidate; ``rglru_scan`` at the prefill's width and rows of any
+alignment; for the LM path, head dims 32-256, MQA/GQA, windows,
 softcaps, Skv > Sq, ragged lengths, f32 and bf16, the bf16 kernel's tile
 edges, and the reduced models against the CPU.
 """
@@ -20,6 +22,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import LAUNCHES, ops, ref
+from repro_torch.kernels.ssu_dedupe import TILE
 from repro_torch.kernels.tracker_select import MAX_SEG
 
 pytestmark = pytest.mark.card
@@ -207,6 +210,19 @@ _SSU_CASES = [
     (32, 24, 32, False, "signed_zero"), (5000, 600, 5000, False, "signed_zero"),
     # a full reservoir that already holds every candidate
     (10_000, 300, 10_000, False, "all_present"),
+    # more candidates than one tile (TILE = 8,192): sorted a tile at a
+    # time, ranked across tiles; "raw" repeats the first half's values in
+    # the second half, so values repeat across tiles
+    (20_000, TILE + 1, 4_000, False, "raw"),
+    (20_000, TILE + 1, 20_000, True, "raw"),
+    (50_000, 2 * TILE, 10_000, False, "unique"),
+    (50_000, 2 * TILE, 50_000, False, "signed_zero"),
+    (50_000, 2 * TILE, 50_000, False, "all_present"),
+    (1_266_403, 2 * TILE, 633_201, False, "raw"),       # full width
+    (1_266_403, 2 * TILE, 1_266_403, False, "raw"),
+    (200_000, 8 * TILE, 100_000, False, "raw"),
+    (200_000, 8 * TILE, 200_000, False, "raw"),
+    (100_000, 8 * TILE, 100_000, True, "raw"),
 ]
 
 
@@ -452,10 +468,18 @@ def test_flash_attention_kernel_refuses(card):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,w", [(2, 128, 64), (1, 257, 130), (3, 64, 32),
-                                   (1, 1, 5), (2, 4096, 256)])
+                                   (1, 1, 5), (2, 4096, 256),
+                                   # the prefill's shape; S one past it
+                                   (2, 4096, 2560), (1, 4097, 2560),
+                                   (8, 300, 96),
+                                   # a tile of 64 steps and one more;
+                                   # 16-step tiles of 160 channels
+                                   (1, 65, 64), (8, 33, 2560)])
 def test_rglru_scan_kernel(card, B, S, w, dtype):
     """Bit-exact against the plain version: the same f32 product and sum,
-    rounded the same way, in the same order; ragged S and w."""
+    rounded the same way, in the same order; ragged S and w (rows of 520,
+    260, 20 and 10 bytes fill the ring with 8- and 4-byte copies and, for
+    bf16 with odd w, plain loads)."""
     g = torch.Generator(device=card).manual_seed(B * S + w)
     a = torch.sigmoid(torch.randn((B, S, w), generator=g, device=card)
                       ).to(dtype)
@@ -465,6 +489,24 @@ def test_rglru_scan_kernel(card, B, S, w, dtype):
     assert LAUNCHES["rglru_scan"] == before + 1
     want = ref.rglru_scan(a, b)
     assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_rglru_scan_kernel_unaligned_base(card, offset, dtype):
+    """Inputs that start 1-3 elements past an aligned address (contiguous
+    views into a larger buffer) take the narrower copies or plain loads,
+    and still match bit for bit."""
+    B, S, w = 2, 300, 64
+    g = torch.Generator(device=card).manual_seed(offset)
+    n = B * S * w
+    a = torch.sigmoid(torch.randn(n + offset, generator=g, device=card)
+                      ).to(dtype)[offset:].view(B, S, w)
+    b = (torch.randn(n + offset, generator=g, device=card) * 0.1
+         ).to(dtype)[offset:].view(B, S, w)
+    assert a.is_contiguous() and a.data_ptr() % 16 != 0
+    got = ops.rglru_scan(a, b)
+    assert got.dtype == dtype and torch.equal(got, ref.rglru_scan(a, b))
 
 
 @pytest.mark.parametrize("arch,changes", [
