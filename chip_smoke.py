@@ -59,6 +59,24 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    alone; this checks what the whole path on the card (trackers, saves,
    the fleet, restores, evaluation) hands back.
 
+5. The port's benchmark harness (``benchmarks_torch``) on the card:
+   (a) fig7's Kaggle rows at full Criteo-Kaggle width (33,762,577 rows,
+   the published config), all six modes with the kernel tracker backend,
+   steps cut to phase 3's 35; each row with its launches by kernel
+   (``embedding_bag`` both ways in every mode, ``tracker_select`` in
+   ``cpr-mfu``, ``ssu_dedupe_evict`` in ``cpr-ssu``; none may be 0) and a
+   load charge below full recovery's in the partial-recovery modes; (b)
+   fig7's ``--fast`` Kaggle rows (scaled), all six modes with the host
+   backend, on the card and on the CPU from the same parameters: identical
+   policy fields, and for ``full`` and ``cpr-mfu`` AUC and eval logloss
+   within ``FIG7_AUC_GAP`` and ``FIG7_LOGLOSS_GAP`` of the CPU's (limits
+   set from ``python -m benchmarks_torch.fig7_spread``); (c) ``table1``
+   and ``fig14`` at ``--fast`` size (``fig14``'s selection must launch
+   ``tracker_select`` and equal the plain version, and its engines' bytes
+   agree); (d) both ``examples/torch_*.py`` as processes on the card,
+   each exiting 0 with its summary lines.  Rows print with the card's
+   ``nvidia-smi`` name and power limit.
+
 The LM serving path (RecurrentGemma-2B at full width, the DLRM tensors
 freed first):
 
@@ -101,6 +119,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -142,6 +161,21 @@ FLASH_CASES = (
 KEY_TILE = 64                # keys per tile of csrc/flash_attention_bf16.cu
 SCAN_SHAPE = (2, 4096, 2560)  # the RG-LRU layers' (B, S, width) at prefill
 SCRATCH = Path(__file__).resolve().parent / "build" / "chip_smoke"
+# phase 5: the benchmark harness.  fig7's policy fields must be equal on the
+# card and the CPU.  At the harness's size (70 steps) the trained model
+# depends on the order of float sums (the card's embedding backward adds
+# atomically, in a run-dependent order; the CPU's AUC moves with its thread
+# count), so in ``full`` and ``cpr-mfu`` the card's AUC and eval logloss
+# are held to the CPU's within limits set from that measured spread.  A
+# card path that trains wrongly misses them by far more
+FIG7_POLICY = ("overhead_frac", "save_h", "load_h", "lost_h", "resched_h",
+               "pls", "overhead_reduction_pct")
+FIG7_HELD = ("full", "cpr-mfu")
+FIG7_AUC_GAP = 3e-2       # measured up to 1.33e-2; untrained 0.34 away
+FIG7_LOGLOSS_GAP = 0.2    # measured up to 5.13e-2; untrained 0.23 away
+EXAMPLE_LINES = {    # example -> (a summary line, how many it prints)
+    "torch_quickstart.py": (r"^\s*(full|cpr-mfu) auc=0\.\d{4} pls=", 2),
+    "torch_cpr_tradeoff.py": (r"^  PLS=\S+\s+auc=0\.\d{4} overhead=", 3)}
 PROBE_ENV = "CHIP_SMOKE_WRITER_PROBE_DIR"
 
 
@@ -873,6 +907,129 @@ def phase_agreement(dev):
     shutil.rmtree(SCRATCH, ignore_errors=True)
 
 
+def launches_since(kernels, before):
+    return {n: kernels.LAUNCHES[n] - before[n] for n in kernels.LAUNCHES}
+
+
+def phase_harness(dev, kernels, cfg):
+    """The port's benchmark harness on the card (phase 5)."""
+    from benchmarks_torch import common
+    from benchmarks_torch import fig7_overhead as fig7
+    from benchmarks_torch import fig14_async_save as fig14
+    from benchmarks_torch import run as harness
+    from benchmarks_torch import table1_trackers as table1
+    from repro_torch.models.dlrm import init_dlrm, params_to_numpy
+    label = common.device_label(dev)
+    emb = {"embedding_bag", "embedding_bag_backward"}
+    uses = {"cpr-mfu": {"tracker_select"}, "cpr-ssu": {"ssu_dedupe_evict"}}
+
+    # (a) fig7, Kaggle at full width, every mode on the kernel backend
+    t0 = time.perf_counter()
+    top = max(cfg.table_sizes)           # a max_rows that scales nothing
+    if common.get_dataset("kaggle", 3, top)[0] != cfg:
+        fail("the harness does not give the published Kaggle config")
+    kernels.reset_launches()
+    rows = []
+    for mode in fig7.MODES:
+        before = dict(kernels.LAUNCHES)
+        (row,) = fig7.run(datasets=("kaggle",), modes=(mode,), device=dev,
+                          tracker_backend="kernel", max_rows=top,
+                          max_steps=STEPS_FLAT)
+        counts = launches_since(kernels, before)
+        rows.append(row)
+        print(f"fig7 (full width, {cfg.total_emb_rows():,} rows, "
+              f"{STEPS_FLAT} steps) {json.dumps({**row, 'device': label})}")
+        print(f"  launches: {json.dumps(counts)}")
+        missing = sorted(n for n in emb | uses.get(mode, set())
+                         if counts[n] == 0)
+        if missing:
+            fail(f"fig7 {mode} at full width never launched {missing}")
+        if not math.isfinite(row["auc"]):
+            fail(f"fig7 {mode} at full width: AUC is not finite")
+        # every failure reloads: everything under full recovery, only the
+        # failed shards (a smaller charge) under the partial modes
+        full_load = rows[0]["load_h"]
+        if not (full_load > 0 and (mode == "full" or
+                                   row["load_h"] < full_load)):
+            fail(f"fig7 {mode} at full width: load {row['load_h']} h (full: "
+                 f"{full_load} h) says the run did not recover as the mode "
+                 f"does")
+    launches = dict(kernels.LAUNCHES)
+    for row in fig7.derived(rows):
+        print(f"fig7 (full width) {json.dumps({**row, 'device': label})}")
+    print(f"fig7 (full width): launches of the six runs "
+          f"{json.dumps(launches)} ({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+
+    # (b) the harness's own size: the card against the CPU, same parameters
+    t0 = time.perf_counter()
+    small, _ = common.get_dataset("kaggle")
+    init = params_to_numpy(init_dlrm(small, torch.Generator().manual_seed(0),
+                                     "cpu"))
+    rows = {}
+    for d in (dev, "cpu"):
+        runs = {m: common.run_emulation(m, device=d, init_params=init)
+                for m in fig7.MODES}
+        rows[d] = [fig7.overhead_row("kaggle", m, r) for m, r in runs.items()]
+        rows[d] += fig7.derived(rows[d])
+        for row, r in zip(rows[d], runs.values()):
+            row["logloss"] = round(r.logloss, 4)
+    for a, b in zip(rows[dev], rows["cpu"]):
+        same = all(a.get(k) == b.get(k) for k in FIG7_POLICY)
+        mode = a["mode"]
+        print(f"fig7 --fast ({small.name}) {mode}: card "
+              f"{json.dumps({**a, 'device': label})} cpu "
+              f"{json.dumps({**b, 'device': 'cpu'})} policy identical={same}")
+        if not same:
+            fail(f"fig7 {mode}: the card's policy differs from the CPU's")
+        if mode in FIG7_HELD:
+            gaps = (abs(a["auc"] - b["auc"]), abs(a["logloss"] - b["logloss"]))
+            print(f"  auc gap {gaps[0]:.4f} (limit {FIG7_AUC_GAP}), eval "
+                  f"logloss gap {gaps[1]:.4f} (limit {FIG7_LOGLOSS_GAP})")
+            if gaps[0] > FIG7_AUC_GAP or gaps[1] > FIG7_LOGLOSS_GAP:
+                fail(f"fig7 {mode}: the card's model differs from the CPU's")
+    print(f"fig7 --fast card vs CPU: {time.perf_counter() - t0:.1f} s")
+
+    # (c) table1 and fig14 at --fast size
+    for name, mod in (("table1", table1), ("fig14", fig14)):
+        t0 = time.perf_counter()
+        before = dict(kernels.LAUNCHES)
+        try:
+            out = mod.run(device=dev, **harness.FAST_OVERRIDES.get(name, {}))
+        except AssertionError as e:
+            fail(f"{name}: an audit failed on the card: {e!r}")
+        for row in out:
+            print(f"{name} {json.dumps({**row, 'device': label})}")
+        counts = launches_since(kernels, before)
+        print(f"{name}: launches {json.dumps(counts)} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if name == "fig14" and (
+                not all(r["matches_numpy_ref"] for r in out
+                        if r["kind"] == "tracker_select")
+                or counts["tracker_select"] == 0):
+            fail("fig14: the card's segment-wise selection did not run "
+                 "through tracker_select or disagrees with its plain version")
+
+    # (d) the examples, each a process of its own on the card
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    for script, (mark, n_lines) in EXAMPLE_LINES.items():
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, str(root / "examples" / script)],
+                           env=env, capture_output=True, text=True,
+                           timeout=600)
+        print(f"examples/{script} (exit {r.returncode}, "
+              f"{time.perf_counter() - t0:.1f} s):")
+        print("\n".join(f"  {line}" for line in r.stdout.splitlines()))
+        if r.returncode:
+            fail(f"examples/{script} failed: {r.stderr[-2000:]}")
+        summary = [line for line in r.stdout.splitlines()
+                   if re.match(mark, line)]
+        if len(summary) != n_lines:
+            fail(f"examples/{script} printed {len(summary)} summary lines, "
+                 f"not {n_lines}")
+
+
 def band_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
     """(query, key) pairs the mask keeps, queries right-aligned to the KV
     tail: the work a kernel that skips masked tiles must still do."""
@@ -1177,6 +1334,8 @@ def main() -> None:
     from repro_torch.configs.dlrm import DLRM_KAGGLE
     launches = phase_main_path(dev, kernels, DLRM_KAGGLE)
     phase_agreement(dev)
+    torch.cuda.empty_cache()
+    phase_harness(dev, kernels, DLRM_KAGGLE)
     torch.cuda.empty_cache()
 
     from repro_torch.configs import get_config

@@ -1,5 +1,7 @@
-"""The port stands alone: no jax, nothing of ``repro``, and the repo's
-invariant rules hold over it."""
+"""The port stands alone: no jax, nothing of ``repro`` (nor of the
+reference's harness, ``benchmarks``), and the repo's invariant rules hold
+over it.  The port is ``src/repro_torch/``, its harness
+``benchmarks_torch/`` and its examples ``examples/torch_*.py``."""
 import ast
 import os
 import subprocess
@@ -8,21 +10,27 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+HARNESS = ROOT / "benchmarks_torch"
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
-def _port_modules():
-    for path in sorted(PORT.rglob("*.py")):
-        rel = path.relative_to(PORT.parent).with_suffix("")
-        parts = list(rel.parts)
+def _modules(root, paths):
+    for path in paths:
+        parts = list(path.relative_to(root).with_suffix("").parts)
         if parts[-1] == "__init__":
             parts.pop()
         yield ".".join(parts)
 
 
+def _port_modules():
+    yield from _modules(PORT.parent, sorted(PORT.rglob("*.py")))
+    yield from _modules(ROOT, sorted(HARNESS.glob("*.py")))
+
+
 def _env():
     env = dict(os.environ)
-    env["PYTHONPATH"] = str(ROOT / "src")
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + str(ROOT)
     return env
 
 
@@ -35,11 +43,18 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
               "repro_torch.kernels.row_hash",
               "repro_torch.models.transformer", "repro_torch.launch.serve",
               "repro_torch.kernels.flash_attention",
-              "repro_torch.kernels.rglru_scan"):
+              "repro_torch.kernels.rglru_scan", "benchmarks_torch.run",
+              "benchmarks_torch.fig7_overhead",
+              "benchmarks_torch.fig14_async_save"):
         assert m in mods, m
+    examples = [str(p) for p in EXAMPLES]
+    assert len(examples) == 2, examples
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
+        f"for p in {examples!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('example', p)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(len(sys.modules), bad)\n"
@@ -50,7 +65,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
 
 
 def test_no_import_of_jax_or_repro_is_written_anywhere():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + sorted(HARNESS.glob("*.py")) +
+             EXAMPLES + [ROOT / "chip_smoke.py"])
     offenders = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
