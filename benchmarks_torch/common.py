@@ -1,4 +1,6 @@
-"""Shared benchmark infrastructure: cached dataset + one-call emulation.
+"""Shared benchmark infrastructure: cached dataset + one-call emulation,
+the fleet figures' cached table state and their device-synchronised
+event timer.
 
 The port of ``benchmarks/common.py``.  ``run_emulation``'s keyword-only
 arguments (device, tracker backend, table scale, step cap, initial
@@ -10,6 +12,7 @@ import functools
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -23,15 +26,22 @@ NUM_SAMPLES = 40_000
 BATCH = 512
 
 
-@functools.lru_cache(maxsize=4)
-def get_dataset(name: str = "kaggle", seed: int = 3, max_rows=None):
-    """(config, dataset) with the tables scaled so that the largest has
+def get_config(name: str = "kaggle", max_rows=None):
+    """The config with the tables scaled so that the largest has
     ``max_rows`` rows (``MAX_ROWS`` when None); a ``max_rows`` at least
-    the largest table's keeps the published config."""
+    the largest table's keeps the published config (``scaled`` would
+    raise its tables of fewer than 4 rows to 4)."""
     cfg = DLRM_KAGGLE if name == "kaggle" else DLRM_TERABYTE
     max_rows = max_rows or MAX_ROWS
     if max(cfg.table_sizes) > max_rows:
         cfg = scaled(cfg, max_rows=max_rows)
+    return cfg
+
+
+@functools.lru_cache(maxsize=4)
+def get_dataset(name: str = "kaggle", seed: int = 3, max_rows=None):
+    """(config, dataset) of ``get_config(name, max_rows)``."""
+    cfg = get_config(name, max_rows)
     ds = ClickLogDataset(cfg.table_sizes, num_samples=NUM_SAMPLES, seed=seed)
     return cfg, ds
 
@@ -77,6 +87,62 @@ def sync(device) -> None:
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def time_events(save_fn, events, device, after=None) -> float:
+    """Per-event critical-path ms (median over ``events`` timed calls),
+    each read after the device has finished the event's work; ``after``
+    runs between events (a drain), outside the timed window."""
+    out = []
+    for _ in range(events):
+        sync(device)
+        t0 = time.perf_counter()
+        save_fn()
+        sync(device)
+        out.append((time.perf_counter() - t0) * 1e3)
+        if after is not None:
+            after()
+    return float(np.median(out))
+
+
+@functools.lru_cache(maxsize=1)
+def _drawn(sizes, d, seed, quantized):
+    rng = np.random.default_rng(seed)
+    if quantized:
+        tables = [rng.normal(size=(n, d)).astype(np.float16)
+                  .astype(np.float32) for n in sizes]
+        accs = [np.abs(rng.normal(size=n)).astype(np.float16)
+                .astype(np.float32) for n in sizes]
+    else:
+        tables = [rng.normal(size=(n, d)).astype(np.float32) for n in sizes]
+        accs = [np.zeros(n, np.float32) for n in sizes]
+    return tables, accs
+
+
+@functools.lru_cache(maxsize=2)
+def _fleet_state(sizes, d, seed, quantized, dev):
+    tables, accs = _drawn(sizes, d, seed, quantized)
+    return (tuple(torch.as_tensor(t, device=dev) for t in tables),
+            tuple(torch.as_tensor(a, device=dev) for a in accs))
+
+
+def fleet_state(sizes, d, seed=0, *, quantized=False, device=None):
+    """The fleet figures' (tables, accs) on ``device``, drawn with numpy
+    exactly as the reference's ``_state`` of fig15 and fig16 does (f32
+    normals, zero accumulators) or, ``quantized``, fig17's (float16-rounded
+    normals and absolute normals).  Drawn once per (sizes, d, seed, kind)
+    and put on each device once (on the CPU the tensors share the drawn
+    arrays' memory); shared: callers get fresh lists and must not write
+    into the tensors."""
+    tables, accs = _fleet_state(tuple(sizes), d, seed, quantized,
+                                resolve_device(device))
+    return list(tables), list(accs)
+
+
+def clear_fleet_state() -> None:
+    """Drop the cached fleet state (and the memory it holds)."""
+    _fleet_state.cache_clear()
+    _drawn.cache_clear()
 
 
 def csv_row(name, us_per_call, derived):

@@ -27,12 +27,11 @@ segment-wise path's time).
 from __future__ import annotations
 
 import tempfile
-import time
 
 import numpy as np
 import torch
 
-from benchmarks_torch.common import sync
+from benchmarks_torch.common import time_events
 from repro_torch import resolve_device
 from repro_torch.configs.dlrm import DLRM_KAGGLE, scaled
 from repro_torch.core import trackers as trk
@@ -48,21 +47,6 @@ def _state(sizes, d, seed=0):
     return tables, accs
 
 
-def _time_events(save_fn, events, device, after=None):
-    """Per-event critical-path ms (median over ``events`` timed calls),
-    each read after the device has finished the event's work."""
-    out = []
-    for _ in range(events):
-        sync(device)
-        t0 = time.perf_counter()
-        save_fn()
-        sync(device)
-        out.append((time.perf_counter() - t0) * 1e3)
-        if after is not None:
-            after()          # drain between events; excluded from timing
-    return float(np.median(out))
-
-
 def _bench_backend(sizes, d, events, directory, device):
     tables, accs = _state(sizes, d)
     spec = EmbShardSpec(sizes, 8)
@@ -72,11 +56,11 @@ def _bench_backend(sizes, d, events, directory, device):
     dev_t = [torch.as_tensor(t, device=device) for t in tables]
     dev_a = [torch.as_tensor(a, device=device) for a in accs]
     sync_store = CheckpointStore(tables, accs, spec, directory=directory)
-    sync_ms = _time_events(
+    sync_ms = time_events(
         lambda: sync_store.save_full(dev_t, dev_a, step=0), events, device)
     astore = CheckpointStore(tables, accs, spec, directory=directory)
     writer = AsyncCheckpointWriter(astore)
-    async_ms = _time_events(
+    async_ms = time_events(
         lambda: writer.save_full(dev_t, dev_a, step=0), events, device,
         after=writer.fence)
     writer.close()
@@ -136,8 +120,8 @@ def run(max_rows=(20_000, 60_000), events=5, select_sizes=(50_000, 200_000),
             counts.cpu(), torch.zeros(0, dtype=torch.int64), k, seg_size=seg)
         exact = (np.array_equal(idx_s, ref_idx.numpy()) and
                  torch.equal(new_s.cpu(), ref_cnt))
-        t_host = _time_events(host, 5, dev)
-        t_seg = _time_events(segmented, 5, dev)
+        t_host = time_events(host, 5, dev)
+        t_seg = time_events(segmented, 5, dev)
         rows.append({
             "figure": "fig14", "kind": "tracker_select", "rows": N,
             "rn": rn, "host_topk_ms": round(t_host, 3),

@@ -36,6 +36,9 @@ BENCHMARKS = [
     ("fig12", "benchmarks_torch.fig12_ssu_slope", {}),
     ("fig13", "benchmarks_torch.fig13_scalability", {}),
     ("fig14", "benchmarks_torch.fig14_async_save", {}),
+    ("fig15", "benchmarks_torch.fig15_sharded_save", {}),
+    ("fig16", "benchmarks_torch.fig16_reshard", {}),
+    ("fig17", "benchmarks_torch.fig17_wire", {}),
     ("table1", "benchmarks_torch.table1_trackers", {}),
 ]
 ANALYTIC = {"fig3", "fig13"}        # numpy only: no device argument
@@ -46,6 +49,12 @@ FAST_OVERRIDES = {
     "fig10": {"n_failures": (2, 20)},
     "fig14": {"max_rows": (20_000,), "events": 3,
               "select_sizes": (50_000,)},
+    # lost_shards keeps the bytes_lost_at_crash parity-vs-stamped audit
+    # (kill a writer, reconstruct from peers) in the fast run
+    "fig15": {"max_rows": 8_000, "n_shards": (1, 2, 4), "events": 3,
+              "lost_shards": (2, 4)},
+    "fig16": {"max_rows": 6_000, "n_ops": 3},
+    "fig17": {"max_rows": 6_000, "events": 3, "hash_rows": 20_000},
 }
 
 

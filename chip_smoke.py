@@ -32,7 +32,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    back (CUDA events) and their own device time (profiler).  ``row_hash`` is held
    bit for bit against its plain version on that table (f32 and a bf16
    copy, each with its f32 accumulator), a ragged width (d = 9), no rows
-   and zero-byte rows; the number of differing words must be 0.
+   and zero-byte rows; the number of differing words must be 0.  The
+   widened contracts, timed beside their plain versions and equal to
+   them: ``tracker_select`` at segments of 65,536 rows (past a team's
+   16,384: a block a segment), ``embedding_bags`` over the 26 tables as
+   12-byte rows (the element path) and over 130 tables (groups of 64).
 3. The main path: the port's ``Emulator`` trains the unscaled Criteo-Kaggle
    DLRM (26 tables, 33,762,577 rows, d = 16) under 2 injected failures in
    modes ``full``, ``cpr-mfu`` and ``cpr-ssu`` (kernel tracker backend),
@@ -76,6 +80,25 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    agree); (d) both ``examples/torch_*.py`` as processes on the card,
    each exiting 0 with its summary lines.  Rows print with the card's
    ``nvidia-smi`` name and power limit.
+6. The fleet figures (``benchmarks_torch`` fig15-17) on the card, the
+   trainer's tables on the device: (a) fig15 at the published Kaggle
+   width (33,762,577 rows, d = 16, 2.30 GB of tables and accumulators),
+   8 shards, one event: save events (memory, disk) and delta saves; its
+   ``delta_save`` rows must equal the same rows computed on the CPU (the
+   plain hash); (b) at ``--fast`` size (26,777 rows), 2 shards: the pipe
+   fleet's shm against spool snapshots, the socket fleet and its codec
+   row (zlib level 6), the bytes a writer crash loses with and without
+   XOR parity, and a re-admission; (c) fig16 (inproc and pipe, the 2 -> 4
+   split) and fig17 (2 shards) at ``--fast`` size, fig17's
+   ``hash_kernel`` at the largest Kaggle table's 10,131,227 x 16 (the
+   cuts and why: FIG15_FULL).  Every audit field must be true and
+   ``unchanged_resave_bytes`` 0; the phase
+   must launch ``row_hash`` (its count goes in the kernels line as
+   ``harness_launches``); no pipe writer or socket server process may
+   create a CUDA context (each reports from inside).  The free disk space
+   under the temporary directory and the host's available memory are
+   printed first, and the phase stops with a plain message if they are
+   short.
 
 The LM serving path (RecurrentGemma-2B at full width, the DLRM tensors
 freed first):
@@ -124,6 +147,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -177,6 +201,33 @@ EXAMPLE_LINES = {    # example -> (a summary line, how many it prints)
     "torch_quickstart.py": (r"^\s*(full|cpr-mfu) auc=0\.\d{4} pls=", 2),
     "torch_cpr_tradeoff.py": (r"^  PLS=\S+\s+auc=0\.\d{4} overhead=", 3)}
 PROBE_ENV = "CHIP_SMOKE_WRITER_PROBE_DIR"
+# phase 6: the fleet figures.  Audit fields that must be true in every row
+# that has them; the disk and host memory the full-width fig15 needs (two
+# compressed 2.3 GB images on disk at once, the sync store, a writer's
+# image, the pinned snapshots and the oracle's copies in host memory)
+FLEET_AUDITS = ("image_matches_sync", "image_matches_oracle",
+                "image_matches_raw", "parity_strictly_below",
+                "parity_image_matches_oracle", "readmit_ok",
+                "compressed_fewer_bytes", "shm_verified",
+                "hash_kernel_exact")
+FLEET_DISK_BYTES = 12e9
+FLEET_RAM_BYTES = 32e9
+# fig15 at the published width: 8 shards, one event (cut from 2: the flat
+# store persists 2.3 GB compressed on one core, 110 s an event on the
+# card's host).  Every fleet of writer processes (pipe, socket, the crash
+# and re-admission drills) takes minutes at that width on that host (the
+# socket fleet 108 s for one event, the pipe fleet's image fetch alone
+# more than 690 s; PERF.md section 6), so those kinds run at --fast size,
+# with 2 shards, as fig16 (one transition of two) and fig17 (2 shards)
+# do: each spawned writer or server takes seconds to start there
+FIG15_FULL = {"n_shards": (8,), "events": 1, "lost_shards": (8,),
+              "kinds": ("save_event", "delta_save")}
+FIG15_FLEETS = {"n_shards": (2,), "lost_shards": (2,),
+                "kinds": ("pipe_snapshot_path", "socket_save_event",
+                          "socket_wire_bytes", "bytes_lost_at_crash",
+                          "readmission")}
+FIG16_CUT = {"transitions": ((2, 4),)}
+FIG17_CUT = {"n_shards": 2}
 
 
 def fail(msg: str) -> None:
@@ -426,6 +477,81 @@ def phase_embedding_bags(dev, eb, ref, rng, gen):
     return rows
 
 
+def phase_wide_contracts(dev, eb, ts, ref, rng, gen):
+    """The kernels' widened contracts at full width, off the main path:
+    ``tracker_select`` past a team's ``TEAM_SEG`` rows (the largest
+    table's counters in segments of 65,536: a block a segment, selecting
+    in device memory), ``embedding_bags`` over the 26 unscaled tables as
+    rows of 3 f32 (12-byte rows: the element path) and over 130 tables
+    (the 26, five times: groups of 64, three launches each way).  Each
+    equals its plain version (``torch.equal``; the backward within 1e-5
+    of the largest gradient, atomic adds) and is timed beside it."""
+    from repro_torch.configs.dlrm import DLRM_KAGGLE
+    from repro_torch.kernels import LAUNCHES
+    seg, k = 65_536, 64
+    counts = torch.from_numpy(np.minimum(rng.zipf(1.2, N_BIG) - 1, 1000)
+                              .astype(np.int32)).to(dev)
+    pend_np = zipf_ids(rng, N_BIG, (2048,))
+    pend_np[:64] = -5                       # out of range: match nothing
+    pend = torch.from_numpy(pend_np).to(dev)
+    got, want = (f(counts, pend, k, seg_size=seg) for f in
+                 (ts.tracker_select, ref.tracker_select))
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    t_b, _ = bound(N_BIG * 4 * 2 + -(-N_BIG // seg) * k * 4)
+    print(f"tracker_select wide path (seg {seg} > TEAM_SEG {ts.TEAM_SEG}, "
+          f"{-(-N_BIG // seg)} segments, k={k}, 2048 pending): "
+          f"torch.equal={equal} ms="
+          f"{time_ms(lambda: ts.tracker_select(counts, pend, k, seg_size=seg)):.4f}"
+          f" plain_ms="
+          f"{time_ms(lambda: ref.tracker_select(counts, pend, k, seg_size=seg)):.4f}"
+          f" bound_ms={t_b:.5f}")
+    if not equal:
+        fail("tracker_select's wide path disagrees with its plain version")
+    del counts, got, want
+
+    sizes = DLRM_KAGGLE.table_sizes
+    sparse = torch.from_numpy(np.stack(
+        [zipf_ids(rng, n, (B, 1)) for n in sizes], axis=1)).to(dev)
+    for name, d, times in (("26 tables, 12-byte rows (element path)", 3, 1),
+                           ("130 tables (3 groups)", D, 5)):
+        tables = [torch.rand((n, d), generator=gen, device=dev) - 0.5
+                  for n in sizes] * times
+        sp = sparse.repeat(1, times, 1).contiguous()
+        T = len(tables)
+        before = (LAUNCHES["embedding_bag"], LAUNCHES["embedding_bag_backward"])
+        out = eb.forward(tables, sp)
+        grad_out = torch.randn((B, T, d), generator=gen, device=dev) * 1e-2
+        grads = eb.backward(grad_out, sp, [t.shape[0] for t in tables])
+        launched = (LAUNCHES["embedding_bag"] - before[0],
+                    LAUNCHES["embedding_bag_backward"] - before[1])
+        equal = torch.equal(out, ref.embedding_bags(tables, sp))
+        want = ref.embedding_bags_backward(grad_out, sp,
+                                           [t.shape[0] for t in tables])
+        err = max((a - b).abs().max().item() for a, b in zip(grads, want))
+        scale = max(b.abs().max().item() for b in want)
+        ok = equal and err <= 1e-5 * max(scale, 1.0)
+        rows = [t.shape[0] for t in tables]
+        t_f, _ = bound(B * T * (d * 4 + 4) + B * T * d * 4, ops=B * T * d)
+        t_g, _ = bound(B * T * (d * 4 + 4) + sum(rows) * d * 4,
+                       ops=B * T * d)
+        print(f"embedding_bags {name}, d={d}, sparse {tuple(sp.shape)}: "
+              f"bound_ms={t_f:.5f} backward bound_ms={t_g:.5f} (bytes); "
+              f"launches (forward, backward)={launched} forward "
+              f"torch.equal={equal} backward max_abs_err={err:.3e} "
+              f"(tol 1e-5 of the largest gradient) ms="
+              f"{time_ms(lambda: eb.forward(tables, sp)):.4f} plain_ms="
+              f"{time_ms(lambda: ref.embedding_bags(tables, sp)):.4f} "
+              f"backward ms="
+              f"{time_ms(lambda: eb.backward(grad_out, sp, rows)):.4f} "
+              f"plain_ms="
+              f"{time_ms(lambda: ref.embedding_bags_backward(grad_out, sp, rows)):.4f}")
+        if not ok or launched != (-(-T // eb.GROUP),) * 2:
+            fail(f"embedding_bags over {name} disagrees with its plain "
+                 f"version or took {launched} launches")
+        del tables, out, grads, want
+        torch.cuda.empty_cache()
+
+
 def phase_kernels(dev, eb, ts, sd, ref):
     """Each kernel vs its plain version at the path's shapes."""
     import torch.nn.functional as F
@@ -640,6 +766,10 @@ def phase_kernels(dev, eb, ts, sd, ref):
                      f"with its plain version")
     ssu_update_without_sync(dev, timed[False][0])
     ssu_update_without_sync(dev, timed[False][0], batch=4 * sd.TILE)
+    del timed, buf, cand, scores
+    torch.cuda.empty_cache()
+    phase_wide_contracts(dev, eb, ts, ref, np.random.default_rng(5),
+                         torch.Generator(device=dev).manual_seed(5))
     for name, r in rows.items():
         print(f"{name}: ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) "
@@ -905,6 +1035,122 @@ def phase_agreement(dev):
         fail("a pipe writer process created a CUDA context (or did not "
              "report)")
     shutil.rmtree(SCRATCH, ignore_errors=True)
+
+
+def _server_probe(*args):
+    """Socket server entry point for this run: the shard server's own,
+    beside a thread that reports, from inside the server process, whether
+    it ever created a CUDA context.  A server serves until it is killed,
+    so the report is rewritten while it serves."""
+    from repro_torch.launch import shard_server
+    probe = Path(os.environ[PROBE_ENV]) / f"server-{os.getpid()}.txt"
+
+    def report():
+        tmp = probe.with_suffix(".tmp")
+        while True:                     # replaced whole: never read torn
+            tmp.write_text(str(torch.cuda.is_initialized()))
+            os.replace(tmp, probe)
+            time.sleep(0.05)
+
+    threading.Thread(target=report, daemon=True).start()
+    shard_server.spawned_server_main(*args)
+
+
+def available_ram() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def phase_fleet_figures(dev, kernels, cfg):
+    """The port's fleet figures on the card (phase 6)."""
+    import tempfile
+
+    from benchmarks_torch import common
+    from benchmarks_torch import fig15_sharded_save as fig15
+    from benchmarks_torch import fig16_reshard as fig16
+    from benchmarks_torch import fig17_wire as fig17
+    from benchmarks_torch import run as harness
+    from repro_torch.core import transport
+    from repro_torch.launch import shard_server
+    label = common.device_label(dev)
+    tmp = tempfile.gettempdir()
+    free, ram = shutil.disk_usage(tmp).free, available_ram()
+    print(f"fleet figures: {free / 1e9:.1f} GB free under {tmp}, "
+          f"{ram / 1e9:.1f} GB of host memory available")
+    if free < FLEET_DISK_BYTES or ram < FLEET_RAM_BYTES:
+        fail(f"the fleet figures need {FLEET_DISK_BYTES / 1e9:.0f} GB of "
+             f"disk under {tmp} and {FLEET_RAM_BYTES / 1e9:.0f} GB of host "
+             f"memory")
+    probes = SCRATCH / "probe-fleet"
+    shutil.rmtree(probes, ignore_errors=True)
+    probes.mkdir(parents=True)
+    os.environ[PROBE_ENV] = str(probes)
+    transport._pipe_worker_main = _pipe_writer_probe
+    shard_server.spawned_server_main = _server_probe
+    fast = harness.FAST_OVERRIDES
+    top = max(cfg.table_sizes)           # a max_rows that scales nothing
+    runs = (
+        (f"fig15 (full width, {cfg.total_emb_rows():,} rows)", fig15,
+         dict(FIG15_FULL, max_rows=top)),
+        ("fig15 --fast, 2 shards", fig15, dict(fast["fig15"], **FIG15_FLEETS)),
+        ("fig16 --fast, one transition", fig16,
+         dict(fast["fig16"], **FIG16_CUT)),
+        (f"fig17 --fast, 2 shards, hash_kernel at {N_BIG:,} rows", fig17,
+         dict(fast["fig17"], hash_rows=N_BIG, **FIG17_CUT)))
+    kernels.reset_launches()
+    t_phase = time.perf_counter()
+    rows = {}
+    for i, (name, mod, kw) in enumerate(runs):
+        t0 = time.perf_counter()
+        before = dict(kernels.LAUNCHES)
+        rows[name] = mod.run(device=dev, **kw)
+        for row in rows[name]:
+            print(f"{name} {json.dumps({**row, 'device': label})}")
+        print(f"{name}: launches {json.dumps(launches_since(kernels, before))}"
+              f" ({time.perf_counter() - t0:.1f} s)")
+        if i == 0:
+            # the same delta saves on the CPU (the plain hash), from the
+            # same numpy draw: equal rows
+            t0 = time.perf_counter()
+            card = [r for r in rows[name] if r["kind"] == "delta_save"]
+            cpu = mod.run(**dict(kw, kinds=("delta_save",)), device="cpu")
+            print(f"{name} delta_save on the CPU {json.dumps(cpu)} equal to "
+                  f"the card's={card == cpu} "
+                  f"({time.perf_counter() - t0:.1f} s)")
+            if card != cpu:
+                fail("fig15's full-width delta saves differ between the card "
+                     "and the CPU")
+    common.clear_fleet_state()
+    launches = dict(kernels.LAUNCHES)
+    print(f"fleet figures: row_hash launches {launches['row_hash']} "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+    for name, out in rows.items():
+        for row in out:
+            bad = [k for k in FLEET_AUDITS if k in row and row[k] is not True]
+            if bad:
+                fail(f"{name} {row['kind']}: audit {bad} false on the card")
+            if row.get("unchanged_resave_bytes", 0) != 0:
+                fail(f"{name}: an unchanged re-save shipped "
+                     f"{row['unchanged_resave_bytes']} bytes")
+    if launches["row_hash"] == 0:
+        fail("the fleet figures never launched row_hash")
+
+    states = {f.name: f.read_text() for f in probes.glob("*.txt")}
+    writers = sum(n.startswith("writer-") for n in states)
+    servers = sum(n.startswith("server-") for n in states)
+    cuda = sorted(f"{n}: {v!r}" for n, v in states.items() if v != "False")
+    alive = [n for n in states if os.path.exists(f"/proc/{n[:-4].split('-')[1]}")]
+    print(f"fleet figures: {writers} pipe writer and {servers} socket server "
+          f"processes reported ({len(alive)} still running); a CUDA context "
+          f"in {len(cuda)}")
+    if not writers or not servers or cuda:
+        fail(f"a fleet process created a CUDA context (or none reported): "
+             f"{cuda}")
+    shutil.rmtree(probes, ignore_errors=True)
+    return launches["row_hash"]
 
 
 def launches_since(kernels, before):
@@ -1295,6 +1541,7 @@ def phase_lm_agreement(dev, params, cfg, small):
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on a GPU")
+    t_start = time.perf_counter()
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch import kernels, resolve_device
     from repro_torch.kernels import _build
@@ -1329,14 +1576,24 @@ def main() -> None:
     if not n_hgmma:
         fail("the bf16 flash_attention kernel has no tensor-core instructions")
 
+    def phase_done(name):
+        print(f"phase {name} done at {time.perf_counter() - t_start:.1f} s")
+
     rows = phase_kernels(dev, eb, ts, sd, ref)
     rows["row_hash"] = phase_row_hash(dev, rh, ref)
+    phase_done("2")
     from repro_torch.configs.dlrm import DLRM_KAGGLE
     launches = phase_main_path(dev, kernels, DLRM_KAGGLE)
+    phase_done("3")
     phase_agreement(dev)
     torch.cuda.empty_cache()
+    phase_done("4")
     phase_harness(dev, kernels, DLRM_KAGGLE)
     torch.cuda.empty_cache()
+    phase_done("5")
+    harness_hashes = phase_fleet_figures(dev, kernels, DLRM_KAGGLE)
+    torch.cuda.empty_cache()
+    phase_done("6")
 
     from repro_torch.configs import get_config
     rows.update(phase_lm_kernels(dev, ops, ref))
@@ -1348,6 +1605,7 @@ def main() -> None:
     phase_lm_agreement(dev, params, lm, lm.reduced())
     del params
     torch.cuda.empty_cache()
+    phase_done("4b")
 
     sources = {"embedding_bag": "embedding_bag.cu",
                "embedding_bag_backward": "embedding_bag.cu",
@@ -1363,6 +1621,7 @@ def main() -> None:
                 "row_hash": "src/repro/kernels/row_hash.py:71",
                 "flash_attention": "src/repro/kernels/flash_attention.py:90",
                 "rglru_scan": "src/repro/kernels/rglru_scan.py:53"}
+    rows["row_hash"]["harness_launches"] = harness_hashes
     line = [{"name": name, "route": "cuda",
              "source": f"src/repro_torch/csrc/{sources[name]}",
              "replaces": replaces[name], "launches": launches[name],

@@ -1538,7 +1538,7 @@ class WriterSession:
                 spec = EmbShardSpec(sizes, int(n_sh), boundaries=bounds)
                 old = self.store
                 store = _ShardStore(self.shard, spec, s_t, s_a,
-                                    directory=directory, sliced=True,
+                                    directory=directory or None, sliced=True,
                                     fsync_payloads=old.fsync_payloads)
                 store.trainer_image = s_tr
                 store.bytes_written = old.bytes_written
@@ -2165,9 +2165,12 @@ class RemoteEndpoint(ShardEndpoint):
     def reshard(self, spec: EmbShardSpec, seed, directory,
                 timeout: float = DRAIN_TIMEOUT_S):
         seed = _host_seed(*seed)
+        # the spec types the directory slot str: a fleet without a
+        # directory sends "" (the reference sends None, which its servers
+        # refuse, so its donors time out and respawn instead)
         self._send(("reshard", self.epoch, list(spec.table_sizes),
                     spec.n_shards, [b.tolist() for b in spec.boundaries],
-                    directory, seed[0], seed[1], seed[2]))
+                    directory or "", seed[0], seed[1], seed[2]))
         msg = self._recv_until("resharded", timeout)
         if msg is None or self._exc is not None:
             raise WriterProcError(
@@ -2282,11 +2285,8 @@ class PipeEndpoint(RemoteEndpoint):
             self.proc.join(timeout=5.0)
 
 
-def spawn_loopback_server(connect_timeout: float, name: str):
-    """Launch a loopback ``shard_server`` process and return
-    ``((host, port), proc)`` — the child binds port 0 and reports the real
-    port back over a bootstrap pipe.  Shared by the per-shard auto-spawn
-    path and the mux-group auto-spawn path (one server per group)."""
+def _start_loopback_server(name: str):
+    """Start a loopback ``shard_server`` process: (bootstrap pipe, proc)."""
     import multiprocessing as mp
 
     from repro_torch.launch import shard_server
@@ -2297,12 +2297,48 @@ def spawn_loopback_server(connect_timeout: float, name: str):
                        name=name, daemon=True)
     proc.start()
     child.close()
+    return parent, proc
+
+
+def _await_loopback_server(parent, proc, connect_timeout: float, name: str):
+    """The started server's ``((host, port), proc)``: the child binds port
+    0 and reports the real port back over the bootstrap pipe."""
     if not parent.poll(connect_timeout):
         proc.kill()
         raise WriterProcError(f"{name} failed to report its port")
     host, port = parent.recv()
     parent.close()
     return (host, port), proc
+
+
+def spawn_loopback_server(connect_timeout: float, name: str):
+    """Launch a loopback ``shard_server`` process and return
+    ``((host, port), proc)``.  Re-admission and the attach fallback spawn
+    one at a time; a new fleet starts its servers together
+    (``spawn_loopback_servers``)."""
+    return _await_loopback_server(*_start_loopback_server(name),
+                                  connect_timeout, name)
+
+
+def spawn_loopback_servers(connect_timeout: float, names: Sequence[str]):
+    """``spawn_loopback_server`` for every name, the processes started
+    together (a server takes seconds to import its modules; one at a time
+    a fleet pays that once per shard).  If one fails to report, every
+    server started here is killed."""
+    started = [_start_loopback_server(name) for name in names]
+    out = []
+    try:
+        for (parent, proc), name in zip(started, names):
+            out.append(_await_loopback_server(parent, proc, connect_timeout,
+                                              name))
+    except BaseException:
+        for parent, proc in started:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(timeout=5.0)
+            parent.close()
+        raise
+    return out
 
 
 class SocketEndpoint(RemoteEndpoint):
@@ -2345,7 +2381,8 @@ class SocketEndpoint(RemoteEndpoint):
                  codec_level: int = 0,
                  codec_floor: int = CODEC_FLOOR_BYTES,
                  shm_probe: Optional[ShmProbe] = None,
-                 mux_conn: Optional[MuxConnection] = None):
+                 mux_conn: Optional[MuxConnection] = None,
+                 server=None):
         super().__init__(shard, epoch=epoch)
         self.spec = spec
         self.directory = directory
@@ -2368,7 +2405,9 @@ class SocketEndpoint(RemoteEndpoint):
         self._shared_server = mux_conn.server_proc if mux_conn else None
         self.shm_ok = False             # hello verified same-machine shm
         self._server_proc = None        # auto-spawned server (owned)
-        self._server_ready = None
+        # an owned server the transport already started for the first
+        # spawn: ((host, port), proc)
+        self._server_ready = server
         self._outq: Optional[queue.Queue] = None
         self._sender: Optional[threading.Thread] = None
         self._ping_token = 0
@@ -2387,9 +2426,13 @@ class SocketEndpoint(RemoteEndpoint):
 
     # ------------------------------------------------------------ spawn ---
     def _spawn_server(self) -> Tuple[str, int]:
-        """Auto-spawn this shard's own loopback ``shard_server``."""
-        addr, proc = spawn_loopback_server(
-            self.connect_timeout, f"cpr-shard-server-{self.shard}")
+        """Auto-spawn this shard's own loopback ``shard_server`` (the first
+        time, take the one the transport started for it)."""
+        if self._server_ready is not None:
+            (addr, proc), self._server_ready = self._server_ready, None
+        else:
+            addr, proc = spawn_loopback_server(
+                self.connect_timeout, f"cpr-shard-server-{self.shard}")
         self._server_proc = proc
         return addr
 
@@ -2714,12 +2757,13 @@ class SocketEndpoint(RemoteEndpoint):
             self._sender.join(timeout=2.0)
             self._sender = None
         if self._server_proc is not None:
-            if self._server_proc.is_alive() and not graceful:
-                self._server_proc.kill()
-            self._server_proc.join(timeout=5.0)
+            # an owned server serves until it is killed, and the writer
+            # fenced before closing: after the close frame nothing is left
+            # to wait for (the reference waits 5 s for an exit that never
+            # comes)
             if self._server_proc.is_alive():
                 self._server_proc.kill()
-                self._server_proc.join(timeout=5.0)
+            self._server_proc.join(timeout=5.0)
             self._server_proc = None
 
     def close(self):
@@ -2948,14 +2992,22 @@ class SocketTransport(ShardTransport):
         # sessions are connection-agnostic, and per-shard handshakes keep
         # the takeover path identical across topologies.
         mux_for: Dict[int, MuxConnection] = {}
+        groups = (self._mux_groups(spec.n_shards, addresses, mux, mux_group)
+                  if attach_watermarks is None else [])
+        # the servers this fleet owns (one a mux group, one a shard
+        # outside the groups), started together
+        grouped = {j for group in groups for j in group}
+        names = ([] if addresses else
+                 [f"cpr-shard-server-g{group[0]}" for group in groups] +
+                 [f"cpr-shard-server-{j}" for j in range(spec.n_shards)
+                  if j not in grouped and attach_watermarks is None])
+        owned = iter(spawn_loopback_servers(connect_timeout, names))
         if attach_watermarks is None:
-            for group in self._mux_groups(spec.n_shards, addresses,
-                                          mux, mux_group):
+            for group in groups:
                 addr = addresses[group[0]] if addresses else None
                 proc = None
                 if addr is None:
-                    addr, proc = spawn_loopback_server(
-                        connect_timeout, f"cpr-shard-server-g{group[0]}")
+                    addr, proc = next(owned)
                     self._owned_group_servers.append(proc)
                 conn = MuxConnection(
                     addr, epoch=epoch, connect_timeout=connect_timeout,
@@ -2994,7 +3046,10 @@ class SocketTransport(ShardTransport):
                            codec_level=self.codec_level,
                            codec_floor=self.codec_floor,
                            shm_probe=self._shm_probe,
-                           mux_conn=mux_for.get(j))
+                           mux_conn=mux_for.get(j),
+                           server=(next(owned) if not addresses
+                                   and j not in grouped
+                                   and attach_watermarks is None else None))
             for j in range(spec.n_shards)]
 
     @staticmethod

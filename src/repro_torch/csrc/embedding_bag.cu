@@ -1,5 +1,6 @@
 // Embedding-bag forward (gather + sum-pool) and its backward (scatter-add)
-// for Hopper (sm_90a), over all of a model's tables in one launch each.
+// for Hopper (sm_90a), over all of a model's tables in one launch each
+// (one per group of 64 tables).
 //
 // Replaces: src/repro/kernels/embedding_bag.py, function embedding_bag
 // (the Pallas kernel, forward only, one table per call).  The backward
@@ -29,6 +30,17 @@
 // adds, and with it the last bits of a row's gradient, varies from run to
 // run.
 //
+// Any width and alignment: where a table's rows are not whole 16-byte
+// chunks or do not start 16-byte aligned (f32 with d = 3, bf16 with
+// d = 4, a view that starts mid-row; for the backward, an output gradient
+// whose rows are not whole aligned float4s), the launcher is told so and
+// both kernels take one element a thread instead of one chunk, with the
+// same sums in the same order.  The host side picks the path from the
+// shapes and pointers.
+//
+// Any number of tables: more than kMaxTables go in groups of kMaxTables,
+// one launch a group (the DLRM path's 26 tables are one group).
+//
 // Ids outside [0, N_t) contribute nothing (forward and backward).
 
 #include <cuda_runtime.h>
@@ -55,132 +67,192 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);
 }
 
-// One thread per (bag, table, 16-byte chunk of the output row).
-template <typename T>
+// The (bag, table-in-group, unit) of thread t, where a unit is a 16-byte
+// chunk (vector path) or one element: bag = b * n_tables + t0 + g.
+struct Place {
+  long long bag;
+  int g, unit;
+};
+__device__ __forceinline__ Place place(long long t, int per_row, int n_group,
+                                       int n_tables, int t0) {
+  const long long q = t / per_row;            // b * n_group + g
+  const int g = (int)(q % n_group);
+  return {(q / n_group) * n_tables + t0 + g, g, (int)(t % per_row)};
+}
+
+// Forward.  VEC: one thread per 16-byte chunk of an output row, rows read
+// and written as uint4; else one thread per element.
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads)
     embedding_bags_fwd(const Tables tabs, const int32_t* __restrict__ idx,
-                       T* __restrict__ out, int batch, int n_tables, int hot,
-                       int chunks) {
-  constexpr int VEC = 16 / sizeof(T);
+                       T* __restrict__ out, int batch, int n_tables, int t0,
+                       int n_group, int hot, int per_row) {
+  constexpr int V = VEC ? 16 / sizeof(T) : 1;  // values a thread sums
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)batch * n_tables * chunks) return;
-  const long long bag = t / chunks;           // b * n_tables + table
-  const int c = (int)(t % chunks);
-  const int table = (int)(bag % n_tables);
-  const uint4* rows = reinterpret_cast<const uint4*>(tabs.ptr[table]);
-  const long long n_rows = tabs.rows[table];
-  float acc[VEC];
+  if (t >= (long long)batch * n_group * per_row) return;
+  const Place at = place(t, per_row, n_group, n_tables, t0);
+  const long long n_rows = tabs.rows[at.g];
+  float acc[V];
 #pragma unroll
-  for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
-  const int32_t* ids = idx + bag * hot;
+  for (int k = 0; k < V; ++k) acc[k] = 0.f;
+  const int32_t* ids = idx + at.bag * hot;
   for (int j = 0; j < hot; ++j) {
     const long long id = ids[j];
     if (id < 0 || id >= n_rows) continue;
-    const uint4 raw = __ldg(rows + id * chunks + c);
-    const T* v = reinterpret_cast<const T*>(&raw);
+    if (VEC) {
+      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(tabs.ptr[at.g]) +
+                              id * per_row + at.unit);
+      const T* v = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) acc[k] += to_f32(v[k]);
+      for (int k = 0; k < V; ++k) acc[k] += to_f32(v[k]);
+    } else {
+      acc[0] += to_f32(__ldg(static_cast<const T*>(tabs.ptr[at.g]) +
+                             id * per_row + at.unit));
+    }
   }
-  uint4 packed;
-  T* o = reinterpret_cast<T*>(&packed);
+  if (VEC) {
+    uint4 packed;
+    T* o = reinterpret_cast<T*>(&packed);
 #pragma unroll
-  for (int k = 0; k < VEC; ++k) o[k] = from_f32<T>(acc[k]);
-  reinterpret_cast<uint4*>(out)[t] = packed;
+    for (int k = 0; k < V; ++k) o[k] = from_f32<T>(acc[k]);
+    reinterpret_cast<uint4*>(out)[at.bag * per_row + at.unit] = packed;
+  } else {
+    out[at.bag * per_row + at.unit] = from_f32<T>(acc[0]);
+  }
 }
 
-// One thread per (bag, table, lookup, 4-float chunk of the f32 gradient).
+// Backward.  VEC: one thread per (lookup, 4-float chunk), grad_out rows
+// read as float4; else one thread per (lookup, element), read through the
+// element stride gs_elem.
+template <bool VEC>
 __global__ void __launch_bounds__(kThreads)
     embedding_bags_bwd(const float* __restrict__ grad_out, long long gs_bag,
-                       long long gs_table, const int32_t* __restrict__ idx,
-                       const Tables grads, int batch, int n_tables, int hot,
-                       int chunks) {
+                       long long gs_table, long long gs_elem,
+                       const int32_t* __restrict__ idx, const Tables grads,
+                       int batch, int n_tables, int t0, int n_group, int hot,
+                       int d) {
+  const int per_row = VEC ? d / 4 : d;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long lookups = (long long)batch * n_tables * hot;
-  if (t >= lookups * chunks) return;
-  const long long lookup = t / chunks;        // (b * n_tables + table) * hot + j
-  const int c = (int)(t % chunks);
-  const long long bag = lookup / hot;
-  const int table = (int)(bag % n_tables);
-  const long long b = bag / n_tables;
-  const long long id = idx[lookup];
-  if (id < 0 || id >= grads.rows[table]) return;
-  const float4 g = *reinterpret_cast<const float4*>(
-      grad_out + b * gs_bag + table * gs_table + c * 4);
-  float* dst = static_cast<float*>(const_cast<void*>(grads.ptr[table])) +
-               (id * chunks + c) * 4;
-  atomicAdd(dst + 0, g.x);
-  atomicAdd(dst + 1, g.y);
-  atomicAdd(dst + 2, g.z);
-  atomicAdd(dst + 3, g.w);
+  if (t >= (long long)batch * n_group * hot * per_row) return;
+  const int unit = (int)(t % per_row);
+  const long long q = t / per_row;            // (b * n_group + g) * hot + j
+  const int j = (int)(q % hot);
+  const Place at = place(q / hot, 1, n_group, n_tables, t0);
+  const long long id = idx[at.bag * hot + j];
+  if (id < 0 || id >= grads.rows[at.g]) return;
+  const long long b = at.bag / n_tables;
+  const int table = t0 + at.g;
+  const float* src = grad_out + b * gs_bag + table * gs_table;
+  float* dst = static_cast<float*>(const_cast<void*>(grads.ptr[at.g])) +
+               id * d;
+  if (VEC) {
+    const float4 g = *reinterpret_cast<const float4*>(src + unit * 4);
+    atomicAdd(dst + unit * 4 + 0, g.x);
+    atomicAdd(dst + unit * 4 + 1, g.y);
+    atomicAdd(dst + unit * 4 + 2, g.z);
+    atomicAdd(dst + unit * 4 + 3, g.w);
+  } else {
+    atomicAdd(dst + unit, src[unit * gs_elem]);
+  }
 }
 
-bool fill(Tables* tabs, const long long* ptrs, const long long* rows,
-          int n_tables) {
-  if (n_tables < 1 || n_tables > kMaxTables) return false;
-  for (int i = 0; i < n_tables; ++i) {
+void fill(Tables* tabs, const long long* ptrs, const long long* rows,
+          int n) {
+  for (int i = 0; i < n; ++i) {
     tabs->ptr[i] = reinterpret_cast<const void*>(ptrs[i]);
     tabs->rows[i] = rows[i];
   }
-  return true;
 }
 
 unsigned blocks_for(long long threads) {
   return (unsigned)((threads + kThreads - 1) / kThreads);
 }
 
+template <typename T, bool VEC>
+void launch_fwd(const Tables& tabs, const void* idx, void* out, int batch,
+                int n_tables, int t0, int n_group, int hot, int per_row,
+                cudaStream_t s) {
+  const long long total = (long long)batch * n_group * per_row;
+  if (total > 0)
+    embedding_bags_fwd<T, VEC><<<blocks_for(total), kThreads, 0, s>>>(
+        tabs, static_cast<const int32_t*>(idx), static_cast<T*>(out), batch,
+        n_tables, t0, n_group, hot, per_row);
+}
+
 }  // namespace
 
 extern "C" {
 
-// T = n_tables <= 64 tables (ptrs[i], rows[i] x d), one dtype (bf16 != 0:
-// bf16, else f32), each row d values in whole 16-byte chunks, 16-byte
-// aligned; idx (batch, T, hot) int32 contiguous -> out (batch, T, d)
-// contiguous, f32 sums stored in the tables' dtype.
+// n_tables tables (ptrs[i], rows[i] x d), one dtype (bf16 != 0: bf16, else
+// f32); idx (batch, T, hot) int32 contiguous -> out (batch, T, d)
+// contiguous, f32 sums stored in the tables' dtype.  vec != 0: every row
+// is whole 16-byte chunks, 16-byte aligned (the caller checked); else the
+// element path.  One launch per group of kMaxTables tables.
 // Returns a cudaError_t code (0 on success).
 int embedding_bags_fwd_launch(const long long* ptrs, const long long* rows,
                               int n_tables, const void* idx, void* out,
-                              int batch, int hot, int d, int bf16,
+                              int batch, int hot, int d, int bf16, int vec,
                               void* stream) {
-  Tables tabs;
-  if (!fill(&tabs, ptrs, rows, n_tables)) return (int)cudaErrorInvalidValue;
-  const int chunks = d * (bf16 ? 2 : 4) / 16;
-  const long long total = (long long)batch * n_tables * chunks;
-  if (total > 0) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (bf16) {
-      embedding_bags_fwd<__nv_bfloat16><<<blocks_for(total), kThreads, 0, s>>>(
-          tabs, static_cast<const int32_t*>(idx),
-          static_cast<__nv_bfloat16*>(out), batch, n_tables, hot, chunks);
-    } else {
-      embedding_bags_fwd<float><<<blocks_for(total), kThreads, 0, s>>>(
-          tabs, static_cast<const int32_t*>(idx), static_cast<float*>(out),
-          batch, n_tables, hot, chunks);
-    }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int per_row = vec ? d * (bf16 ? 2 : 4) / 16 : d;
+  for (int t0 = 0; t0 < n_tables; t0 += kMaxTables) {
+    const int n_group = n_tables - t0 < kMaxTables ? n_tables - t0
+                                                   : kMaxTables;
+    Tables tabs;
+    fill(&tabs, ptrs + t0, rows + t0, n_group);
+    if (bf16 && vec)
+      launch_fwd<__nv_bfloat16, true>(tabs, idx, out, batch, n_tables, t0,
+                                      n_group, hot, per_row, s);
+    else if (bf16)
+      launch_fwd<__nv_bfloat16, false>(tabs, idx, out, batch, n_tables, t0,
+                                       n_group, hot, per_row, s);
+    else if (vec)
+      launch_fwd<float, true>(tabs, idx, out, batch, n_tables, t0, n_group,
+                              hot, per_row, s);
+    else
+      launch_fwd<float, false>(tabs, idx, out, batch, n_tables, t0, n_group,
+                               hot, per_row, s);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
   }
-  return (int)cudaGetLastError();
+  return 0;
 }
 
-// grad_out (batch, T, d) f32, element strides (gs_bag, gs_table, 1), rows
-// 16-byte aligned; idx (batch, T, hot) int32 contiguous; adds into the T
-// dense f32 gradients (ptrs[i], rows[i] x d), which the caller zeroed.
-// d must be a multiple of 4.
+// grad_out (batch, T, d) f32, element strides (gs_bag, gs_table, gs_elem);
+// idx (batch, T, hot) int32 contiguous; adds into the T dense f32
+// gradients (ptrs[i], rows[i] x d), which the caller zeroed.  vec != 0:
+// d % 4 == 0, gs_elem == 1 and every grad_out row a whole aligned float4
+// run (the caller checked); else the element path.  One launch per group
+// of kMaxTables tables.
 int embedding_bags_bwd_launch(const void* grad_out, long long gs_bag,
-                              long long gs_table, const void* idx,
-                              const long long* ptrs, const long long* rows,
-                              int n_tables, int batch, int hot, int d,
-                              void* stream) {
-  Tables grads;
-  if (!fill(&grads, ptrs, rows, n_tables)) return (int)cudaErrorInvalidValue;
-  const int chunks = d / 4;
-  const long long total = (long long)batch * n_tables * hot * chunks;
-  if (total > 0) {
-    embedding_bags_bwd<<<blocks_for(total), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(grad_out), gs_bag, gs_table,
-        static_cast<const int32_t*>(idx), grads, batch, n_tables, hot,
-        chunks);
+                              long long gs_table, long long gs_elem,
+                              const void* idx, const long long* ptrs,
+                              const long long* rows, int n_tables, int batch,
+                              int hot, int d, int vec, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long per_row = vec ? d / 4 : d;
+  for (int t0 = 0; t0 < n_tables; t0 += kMaxTables) {
+    const int n_group = n_tables - t0 < kMaxTables ? n_tables - t0
+                                                   : kMaxTables;
+    Tables grads;
+    fill(&grads, ptrs + t0, rows + t0, n_group);
+    const long long total = (long long)batch * n_group * hot * per_row;
+    if (total > 0) {
+      const float* g = static_cast<const float*>(grad_out);
+      const int32_t* ids = static_cast<const int32_t*>(idx);
+      if (vec)
+        embedding_bags_bwd<true><<<blocks_for(total), kThreads, 0, s>>>(
+            g, gs_bag, gs_table, gs_elem, ids, grads, batch, n_tables, t0,
+            n_group, hot, d);
+      else
+        embedding_bags_bwd<false><<<blocks_for(total), kThreads, 0, s>>>(
+            g, gs_bag, gs_table, gs_elem, ids, grads, batch, n_tables, t0,
+            n_group, hot, d);
+    }
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
   }
-  return (int)cudaGetLastError();
+  return 0;
 }
 
 }  // extern "C"

@@ -28,27 +28,28 @@
 
 namespace {
 
-constexpr int64_t kMaxTables = 64;        // embedding_bag.cu
-constexpr int64_t kMaxSeg = 32 * 32 * 16;   // tracker_select.cu
-
 using ForwardLaunch = int (*)(const long long* ptrs, const long long* rows,
                               int n_tables, const void* idx, void* out,
-                              int batch, int hot, int d, int bf16,
+                              int batch, int hot, int d, int bf16, int vec,
                               void* stream);
 using BackwardLaunch = int (*)(const void* grad_out, long long gs_bag,
-                               long long gs_table, const void* idx,
-                               const long long* ptrs, const long long* rows,
-                               int n_tables, int batch, int hot, int d,
+                               long long gs_table, long long gs_elem,
+                               const void* idx, const long long* ptrs,
+                               const long long* rows, int n_tables,
+                               int batch, int hot, int d, int vec,
                                void* stream);
+using SelectScratch = long long (*)(long long n_rows, int seg, int k);
 using SelectLaunch = int (*)(const void* counts, const void* pending,
                              long long n_pending, void* new_counts, void* ids,
-                             long long n_rows, int seg, int k, void* stream);
+                             void* scratch, long long n_rows, int seg, int k,
+                             void* stream);
 using ScratchWords = long long (*)(int nc);
 using SsuLaunch = int (*)(const void* buf, const void* cand,
                           const void* scores, void* out, void* scratch,
                           int rn, int nc, void* stream);
 ForwardLaunch g_forward = nullptr;
 BackwardLaunch g_backward = nullptr;
+SelectScratch g_select_scratch = nullptr;
 SelectLaunch g_select = nullptr;
 ScratchWords g_scratch_words = nullptr;
 SsuLaunch g_ssu = nullptr;
@@ -76,12 +77,17 @@ void check_sparse(const at::Tensor& sparse, const c10::Device& device,
           "sparse's second dim must equal the number of tables");
 }
 
-// T tables (N_t, d), f32 or bf16, one dtype, d and device, contiguous,
-// rows in 16-byte chunks, 16-byte aligned -> (B, T, d) in their dtype
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// T tables (N_t, d), f32 or bf16, one dtype, d and device, contiguous ->
+// (B, T, d) in their dtype.  Rows in whole 16-byte chunks, 16-byte
+// aligned, take the vector path; any others the element path.
 at::Tensor forward(const std::vector<at::Tensor>& tables,
                    const at::Tensor& sparse, int64_t stream) {
   const int64_t n = static_cast<int64_t>(tables.size());
-  require(n >= 1 && n <= kMaxTables, "embedding_bags takes 1 to 64 tables");
+  require(n >= 1, "embedding_bags takes at least one table");
   const at::Tensor& first = tables[0];
   const auto dtype = first.scalar_type();
   const c10::Device device = first.device();
@@ -90,10 +96,8 @@ at::Tensor forward(const std::vector<at::Tensor>& tables,
           "tables must be contiguous (N_t, d) float32 or bfloat16 CUDA "
           "tensors of one dtype, one d and one device");
   const int64_t d = first.size(1);
-  require(d * first.element_size() % 16 == 0,
-          "table rows must be whole 16-byte chunks, 16-byte aligned");
-  long long ptrs[kMaxTables];
-  long long rows[kMaxTables];
+  bool vec = d * first.element_size() % 16 == 0;
+  std::vector<long long> ptrs(n), rows(n);
   for (int64_t i = 0; i < n; ++i) {
     const at::Tensor& t = tables[i];
     require(t.scalar_type() == dtype && t.device() == device &&
@@ -102,45 +106,43 @@ at::Tensor forward(const std::vector<at::Tensor>& tables,
             "tensors of one dtype, one d and one device");
     ptrs[i] = reinterpret_cast<long long>(t.data_ptr());
     rows[i] = t.size(0);
-    require(ptrs[i] % 16 == 0,
-            "table rows must be whole 16-byte chunks, 16-byte aligned");
+    vec = vec && aligned16(t.data_ptr());
   }
   check_sparse(sparse, device, n);
   const int64_t batch = sparse.size(0);
   at::Tensor out = at::empty({batch, n, d}, first.options());
-  check_launch(g_forward(ptrs, rows, static_cast<int>(n), sparse.data_ptr(),
-                         out.data_ptr(), static_cast<int>(batch),
+  check_launch(g_forward(ptrs.data(), rows.data(), static_cast<int>(n),
+                         sparse.data_ptr(), out.data_ptr(),
+                         static_cast<int>(batch),
                          static_cast<int>(sparse.size(2)),
-                         static_cast<int>(d), dtype == at::kBFloat16,
+                         static_cast<int>(d), dtype == at::kBFloat16, vec,
                          reinterpret_cast<void*>(stream)),
                "embedding_bag");
   return out;
 }
 
-// grad_out (B, T, d) f32 read through its (bag, table) strides, rows
-// contiguous and 16-byte aligned -> T dense (rows[t], d) f32 gradients,
-// views of one zeroed allocation
+// grad_out (B, T, d) f32 read in place through its strides -> T dense
+// (rows[t], d) f32 gradients, views of one zeroed allocation.  Rows that
+// are whole float4 runs, contiguous and 16-byte aligned, take the vector
+// path; any others the element path.
 std::vector<at::Tensor> backward(const at::Tensor& grad_out,
                                  const at::Tensor& sparse,
                                  const std::vector<int64_t>& rows,
                                  int64_t stream) {
   const int64_t n = static_cast<int64_t>(rows.size());
-  require(n >= 1 && n <= kMaxTables, "embedding_bags takes 1 to 64 tables");
+  require(n >= 1, "embedding_bags takes at least one table");
   require(grad_out.is_cuda() && grad_out.scalar_type() == at::kFloat &&
               grad_out.dim() == 3 && grad_out.size(1) == n,
           "grad_out must be a float32 (B, T, d) CUDA tensor");
   const int64_t batch = grad_out.size(0);
   const int64_t d = grad_out.size(2);
-  require(d % 4 == 0 && grad_out.stride(2) == 1 &&
-              reinterpret_cast<uintptr_t>(grad_out.data_ptr()) % 16 == 0 &&
-              grad_out.stride(0) % 4 == 0 && grad_out.stride(1) % 4 == 0,
-          "grad_out rows must be whole float4 chunks, contiguous and "
-          "16-byte aligned");
+  const bool vec = d % 4 == 0 && grad_out.stride(2) == 1 &&
+                   aligned16(grad_out.data_ptr()) &&
+                   grad_out.stride(0) % 4 == 0 && grad_out.stride(1) % 4 == 0;
   check_sparse(sparse, grad_out.device(), n);
   require(sparse.size(0) == batch, "sparse and grad_out disagree on B");
   int64_t total = 0;
-  long long ptrs[kMaxTables];
-  long long counts[kMaxTables];
+  std::vector<long long> ptrs(n), counts(n);
   for (int64_t i = 0; i < n; ++i) {
     require(rows[i] >= 0, "row counts must be >= 0");
     counts[i] = rows[i];
@@ -152,11 +154,11 @@ std::vector<at::Tensor> backward(const at::Tensor& grad_out,
     ptrs[i] = base + start * d * 4;
   }
   check_launch(g_backward(grad_out.data_ptr(), grad_out.stride(0),
-                          grad_out.stride(1), sparse.data_ptr(), ptrs,
-                          counts, static_cast<int>(n),
-                          static_cast<int>(batch),
+                          grad_out.stride(1), grad_out.stride(2),
+                          sparse.data_ptr(), ptrs.data(), counts.data(),
+                          static_cast<int>(n), static_cast<int>(batch),
                           static_cast<int>(sparse.size(2)),
-                          static_cast<int>(d),
+                          static_cast<int>(d), vec,
                           reinterpret_cast<void*>(stream)),
                "embedding_bag_backward");
   return flat.split_with_sizes(rows);
@@ -187,16 +189,18 @@ std::tuple<at::Tensor, at::Tensor> tracker_select(const at::Tensor& counts,
   const int64_t n_seg = (n + seg - 1) / seg;
   k = std::min(k, seg);
   require(k >= 1, "k must be >= 1, got " + std::to_string(k));
-  require(seg <= kMaxSeg, "seg_size " + std::to_string(seg) +
-          " is wider than one team of threads holds (max " +
-          std::to_string(kMaxSeg) + ")");
+  require(seg < (int64_t{1} << 31), "seg_size must fit in int32");
   at::Tensor ids = at::empty({n_seg * k}, counts.options());
   at::Tensor new_counts = at::empty({n}, counts.options());
   if (n == 0) return {ids, new_counts};
+  const int s = static_cast<int>(seg), kk = static_cast<int>(k);
+  const long long words = g_select_scratch(n, s, kk);
+  at::Tensor scratch;                     // the wide path's sort area
+  if (words) scratch = at::empty({words}, counts.options().dtype(at::kLong));
   check_launch(g_select(counts.data_ptr(), pending.data_ptr(),
                         pending.numel(), new_counts.data_ptr(),
-                        ids.data_ptr(), n, static_cast<int>(seg),
-                        static_cast<int>(k), reinterpret_cast<void*>(stream)),
+                        ids.data_ptr(), words ? scratch.data_ptr() : nullptr,
+                        n, s, kk, reinterpret_cast<void*>(stream)),
                "tracker_select");
   return {ids, new_counts};
 }
@@ -231,10 +235,11 @@ at::Tensor ssu_dedupe_evict(const at::Tensor& buf, const at::Tensor& cand,
 }  // namespace
 
 PYBIND11_MODULE(launch_host, m) {
-  m.def("bind", [](int64_t fwd, int64_t bwd, int64_t select,
-                   int64_t scratch_words, int64_t ssu) {
+  m.def("bind", [](int64_t fwd, int64_t bwd, int64_t select_scratch,
+                   int64_t select, int64_t scratch_words, int64_t ssu) {
     g_forward = reinterpret_cast<ForwardLaunch>(fwd);
     g_backward = reinterpret_cast<BackwardLaunch>(bwd);
+    g_select_scratch = reinterpret_cast<SelectScratch>(select_scratch);
     g_select = reinterpret_cast<SelectLaunch>(select);
     g_scratch_words = reinterpret_cast<ScratchWords>(scratch_words);
     g_ssu = reinterpret_cast<SsuLaunch>(ssu);

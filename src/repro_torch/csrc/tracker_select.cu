@@ -36,6 +36,19 @@
 // the picks above the bucket are sorted, as packed 64-bit keys in shared
 // memory (bitonic).  The counters go back once, the picks zeroed.
 //
+// Wider segments (seg > 16384, past what a team holds in registers):
+//   (c) select, wide: a block of kWideThreads threads per segment reads
+//       the counters from device memory.  Four passes of an 8-bit radix
+//       select (a 256-bin histogram in shared memory, warp-aggregated
+//       adds) fix the k-th largest key P exactly, and how many rows equal
+//       to it are picked (kr).  One pass then writes the bucket's picks
+//       (the kr lowest-positioned rows equal to P) in row order, by a
+//       block-wide prefix, and gathers the rows above P into a scratch
+//       area of device memory as packed (~key, position) keys, which a
+//       bitonic sort of the block puts in selection order.  A last pass
+//       writes the counters back, the picks cleared.  It reads each
+//       counter six times; no main-path call takes it (seg <= 512 there).
+//
 // Bound on this card: bytes.  The function must read and write N*4 bytes
 // of counters and write n_seg*k*4 bytes of ids (40.5 MB + 40.5 MB + 5 MB
 // for the largest Kaggle table, 0.0257 ms at 3.35 TB/s).  Each counter
@@ -287,6 +300,163 @@ tracker_select_kernel(const int32_t* counts_in, int32_t* counts_out,
     seg_ids[i] = (int32_t)(lo + (uint32_t)sbuf[i]);
 }
 
+constexpr int kWideThreads = 1024;
+constexpr int kWideMaxSeg = 32 * 32 * 16;   // widest segment a team holds
+
+// Exclusive prefix sum in thread order over the block; *total gets the
+// block's sum.  `sums` holds 32 words of shared memory.
+__device__ unsigned long long block_excl_scan(unsigned long long x,
+                                              unsigned long long* sums,
+                                              unsigned long long* total) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  unsigned long long inc = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned long long y = __shfl_up_sync(kFull, inc, o);
+    if (lane >= o) inc += y;
+  }
+  if (lane == 31) sums[wid] = inc;
+  __syncthreads();
+  if (wid == 0) {
+    unsigned long long w = lane < n_warps ? sums[lane] : 0ull;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned long long y = __shfl_up_sync(kFull, w, o);
+      if (lane >= o) w += y;
+    }
+    sums[lane] = w;                       // inclusive, by warp
+  }
+  __syncthreads();
+  const unsigned long long before = wid ? sums[wid - 1] : 0ull;
+  *total = sums[n_warps - 1];
+  __syncthreads();                        // `sums` is reused by the caller
+  return before + inc - x;
+}
+
+__device__ __forceinline__ int32_t wide_count(const int32_t* c, long long lo,
+                                              int p, long long n_rows) {
+  return lo + p < n_rows ? c[lo + p] : -1;   // padding rows count -1
+}
+
+// One block per segment of any width.  counts_in and counts_out may alias:
+// the block reads its whole segment before the last pass writes it.
+// scratch: max_sort 64-bit words a segment.
+__global__ void __launch_bounds__(kWideThreads)
+tracker_select_wide_kernel(const int32_t* counts_in, int32_t* counts_out,
+                           int32_t* __restrict__ out_ids,
+                           unsigned long long* scratch, long long n_rows,
+                           int seg, int k, int max_sort) {
+  __shared__ unsigned hist[256];
+  __shared__ unsigned long long sums[32];
+  __shared__ unsigned s_digit;
+  __shared__ int s_kr, s_last;
+  const int t = threadIdx.x, T = blockDim.x, lane = t & 31;
+  const long long s = blockIdx.x;
+  const long long lo = s * seg;
+
+  // ---- radix select, 8 bits a pass: P is the k-th largest key, kr the
+  // number of rows equal to it that are picked (1 <= kr)
+  uint32_t P = 0u, M = 0u;
+  int kr = k;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    for (int i = t; i < 256; i += T) hist[i] = 0u;
+    __syncthreads();
+    for (int p0 = 0; p0 < seg; p0 += T) {   // block-uniform trip count
+      const int p = p0 + t;
+      unsigned bin = 256u;                  // no bin
+      if (p < seg) {
+        const uint32_t key = key_of(wide_count(counts_in, lo, p, n_rows));
+        if ((key & M) == P) bin = (key >> shift) & 255u;
+      }
+      const unsigned peers = __match_any_sync(kFull, bin);
+      if (bin != 256u && __ffs(peers) - 1 == lane)
+        atomicAdd(&hist[bin], (unsigned)__popc(peers));
+    }
+    __syncthreads();
+    if (t == 0) {
+      int r = kr;
+      unsigned digit = 0u;
+      for (int d = 255; d >= 0; --d) {
+        const int c = (int)hist[d];
+        if (c >= r) { digit = (unsigned)d; break; }
+        r -= c;
+      }
+      s_digit = digit;
+      s_kr = r;
+    }
+    __syncthreads();
+    P |= s_digit << shift;
+    M |= 0xffu << shift;
+    kr = s_kr;
+  }
+
+  // ---- one pass in row order: the bucket's picks at their prefix, the
+  // rows above P gathered for the sort
+  const int n_above = k - kr;
+  unsigned long long* sbuf = scratch + (size_t)s * max_sort;
+  int32_t* seg_ids = out_ids + s * k;
+  if (t == 0) s_last = -1;
+  unsigned long long base_eq = 0ull, base_above = 0ull;
+  for (int p0 = 0; p0 < seg; p0 += T) {
+    const int p = p0 + t;
+    const uint32_t key = p < seg ? key_of(wide_count(counts_in, lo, p, n_rows))
+                                 : 0u;
+    const bool eq = p < seg && key == P, above = p < seg && key > P;
+    unsigned long long total;
+    const unsigned long long before = block_excl_scan(
+        ((unsigned long long)above << 32) | (unsigned long long)eq, sums,
+        &total);
+    if (eq) {
+      const unsigned long long r = base_eq + (before & 0xffffffffull);
+      if (r < (unsigned long long)kr) {
+        seg_ids[n_above + r] = (int32_t)(lo + p);
+        if (r == (unsigned long long)(kr - 1)) s_last = p;
+      }
+    }
+    if (above)
+      sbuf[base_above + (before >> 32)] =
+          ((unsigned long long)(~key) << 32) | (unsigned)p;
+    base_eq += total & 0xffffffffull;
+    base_above += total >> 32;
+  }
+  __syncthreads();
+  const int last = s_last;
+
+  // ---- the picks above P in selection order: ascending (~key, position)
+  if (n_above > 0) {
+    const int n_sort = n_above == 1 ? 1 : 1 << (32 - __clz(n_above - 1));
+    for (int i = n_above + t; i < n_sort; i += T) sbuf[i] = ~0ull;
+    __syncthreads();
+    for (int size = 2; size <= n_sort; size <<= 1) {
+      for (int j = size >> 1; j > 0; j >>= 1) {
+        for (int i = t; i < n_sort / 2; i += T) {
+          const int a = ((i & ~(j - 1)) << 1) | (i & (j - 1));
+          const int b = a | j;
+          const unsigned long long x = sbuf[a], y = sbuf[b];
+          if ((x > y) == ((a & size) == 0)) { sbuf[a] = y; sbuf[b] = x; }
+        }
+        __syncthreads();
+      }
+    }
+    for (int i = t; i < n_above; i += T)
+      seg_ids[i] = (int32_t)(lo + (uint32_t)sbuf[i]);
+  }
+
+  // ---- counters back, picks cleared
+  for (int p = t; p < seg && lo + p < n_rows; p += T) {
+    const int32_t v = counts_in[lo + p];
+    const uint32_t key = key_of(v);
+    counts_out[lo + p] = key > P || (key == P && p <= last) ? 0 : v;
+  }
+}
+
+long long next_pow2(long long x) {
+  long long p = 1;
+  while (p < x) p <<= 1;
+  return p;
+}
+
 template <int W, int G>
 cudaError_t launch_select(const int32_t* src, int32_t* dst, int32_t* ids,
                           long long n_rows, long long n_seg, int seg, int k,
@@ -312,12 +482,20 @@ cudaError_t launch_select(const int32_t* src, int32_t* dst, int32_t* ids,
 
 extern "C" {
 
+// Scratch the select needs, in 64-bit words: the wide path's sort area
+// (a power of two >= k a segment), none for seg <= 16384.
+long long tracker_select_scratch_words(long long n_rows, int seg, int k) {
+  if (seg <= kWideMaxSeg) return 0;
+  return (n_rows + seg - 1) / seg * next_pow2(k);
+}
+
 // counts (n_rows,) i32 -> new_counts (n_rows,) i32 and ids (n_seg*k,) i32.
 // pending (n_pending,) i32 ids are folded in first (may be 0 long).
-// 1 <= k <= seg <= 16384 (32 warps x 32 lanes x 16 counters).
+// 1 <= k <= seg; scratch holds tracker_select_scratch_words(n_rows, seg, k)
+// words (may be null where that is 0).
 int tracker_select(const void* counts, const void* pending, long long n_pending,
-                   void* new_counts, void* ids, long long n_rows, int seg,
-                   int k, void* stream) {
+                   void* new_counts, void* ids, void* scratch,
+                   long long n_rows, int seg, int k, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   long long n_seg = (n_rows + seg - 1) / seg;
   const int32_t* src = (const int32_t*)counts;
@@ -342,8 +520,13 @@ int tracker_select(const void* counts, const void* pending, long long n_pending,
   else if (seg <= 2048) e = launch_select<4, 4>(src, dst, out, n_rows, n_seg, seg, k, s);
   else if (seg <= 4096) e = launch_select<8, 4>(src, dst, out, n_rows, n_seg, seg, k, s);
   else if (seg <= 8192) e = launch_select<16, 4>(src, dst, out, n_rows, n_seg, seg, k, s);
-  else if (seg <= 16384) e = launch_select<32, 4>(src, dst, out, n_rows, n_seg, seg, k, s);
-  else e = cudaErrorInvalidValue;
+  else if (seg <= kWideMaxSeg) e = launch_select<32, 4>(src, dst, out, n_rows, n_seg, seg, k, s);
+  else {
+    tracker_select_wide_kernel<<<(unsigned)n_seg, kWideThreads, 0, s>>>(
+        src, dst, out, (unsigned long long*)scratch, n_rows, seg, k,
+        (int)next_pow2(k));
+    e = cudaGetLastError();
+  }
   return (int)e;
 }
 

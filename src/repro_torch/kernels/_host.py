@@ -11,6 +11,7 @@ from repro_torch.kernels import _build
 
 _LAUNCHERS = (("embedding_bag", "embedding_bags_fwd_launch"),
               ("embedding_bag", "embedding_bags_bwd_launch"),
+              ("tracker_select", "tracker_select_scratch_words"),
               ("tracker_select", "tracker_select"),
               ("ssu_dedupe", "ssu_scratch_words"),
               ("ssu_dedupe", "ssu_dedupe_evict"))

@@ -18,7 +18,9 @@ path costs: the checks of every table, the allocation and the launch run
 in the C++ host module ``csrc/launch_host.cpp``, which takes the list of
 tables in one crossing and calls the CUDA launchers whose addresses it was
 given once.  The tables' pointers and row counts go to the kernel by
-value; nothing is cached across calls.
+value, ``GROUP`` tables a launch; nothing is cached across calls.  Any
+width and alignment is taken: rows that are not whole aligned 16-byte
+chunks go through the kernels' element path.
 """
 from __future__ import annotations
 
@@ -28,36 +30,39 @@ from repro_torch.kernels import (LAUNCHES, _host, launch_on, on_card, ref,
                                  require, stream_of)
 
 
+GROUP = 64         # tables a launch (csrc/embedding_bag.cu, kMaxTables)
+
+
+def launches(n_tables: int) -> int:
+    """Kernel launches of one call over ``n_tables`` tables, each way."""
+    return -(-n_tables // GROUP)
+
+
 def forward(tables, sparse: torch.Tensor) -> torch.Tensor:
-    """Kernel launch: T <= 64 tables (N_t, d) f32 or bf16, one dtype and
-    d, contiguous, on one CUDA device; ``sparse`` (B, T, hot) int32,
+    """Kernel launch: T tables (N_t, d) f32 or bf16, one dtype and d,
+    contiguous, on one CUDA device; ``sparse`` (B, T, hot) int32,
     contiguous -> (B, T, d).  Raises ValueError on anything else."""
-    require(len(tables) > 0 and tables[0].is_cuda, "forward launches a "
-            "CUDA kernel: the tables must be on a CUDA device")
+    require(len(tables) > 0, "embedding_bags takes at least one table")
+    require(tables[0].is_cuda, "forward launches a CUDA kernel: the tables "
+            "must be on a CUDA device")
     first = tables[0]
     out = launch_on(first.get_device(), _host.module().embedding_bags_forward,
                     tables, sparse, stream_of(first))
-    LAUNCHES["embedding_bag"] += 1
+    LAUNCHES["embedding_bag"] += launches(len(tables))
     return out
-
-
-def _fits(g: torch.Tensor) -> bool:
-    """(B, T, d) f32 read in place: contiguous rows, 16-byte aligned."""
-    return (g.stride(2) == 1 and g.data_ptr() % 16 == 0
-            and g.stride(0) % 4 == 0 and g.stride(1) % 4 == 0)
 
 
 def backward(grad_out: torch.Tensor, sparse: torch.Tensor,
              rows) -> list:
     """Kernel launch: dense (rows[t], d) f32 table gradients, views of one
-    zeroed allocation, from ``grad_out`` (B, T, d) f32 (read through its
-    strides; rows contiguous and 16-byte aligned) by atomic adds."""
+    zeroed allocation, from ``grad_out`` (B, T, d) f32, read in place
+    through its strides, by atomic adds."""
     require(grad_out.is_cuda, "backward launches a CUDA kernel: grad_out "
             "must be on a CUDA device")
     grads = launch_on(grad_out.get_device(),
                       _host.module().embedding_bags_backward, grad_out,
                       sparse, list(rows), stream_of(grad_out))
-    LAUNCHES["embedding_bag_backward"] += 1
+    LAUNCHES["embedding_bag_backward"] += launches(len(rows))
     return grads
 
 
@@ -82,8 +87,7 @@ class EmbeddingBags(torch.autograd.Function):
         (sparse,) = ctx.saved_tensors
         g = grad_out.float()
         if on_card(g, sparse):
-            grads = backward(g if _fits(g) else g.contiguous(), sparse,
-                             ctx.rows)
+            grads = backward(g, sparse, ctx.rows)
         else:
             grads = ref.embedding_bags_backward(g, sparse, ctx.rows)
         return (None, *(x.to(ctx.dtype) for x in grads))

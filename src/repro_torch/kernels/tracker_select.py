@@ -3,9 +3,11 @@
 Replaces ``repro.kernels.tracker_select.tracker_select`` (Pallas); the CUDA
 source is ``csrc/tracker_select.cu``, which says what bounds it.  The TPU
 version needed ``seg`` to be a multiple of the 128-wide lane dimension; on
-this card any ``seg`` up to ``MAX_SEG`` works: a team of one warp (``seg``
-<= 512, the main path) up to 32 warps holds a segment in registers, 16
-counters a thread, so ``MAX_SEG`` is 32 * 32 * 16 rows.
+this card any ``seg`` works.  Up to ``TEAM_SEG`` rows a team of one warp
+(``seg`` <= 512, the main path) up to 32 warps holds a segment in
+registers, 16 counters a thread; a wider segment takes a block of its own
+that selects over the counters in device memory, with a sort area the host
+module allocates.
 
 ``autotune_seg_size`` times the candidate segment widths on the device
 the caller names: CUDA events on the card, the host clock on the CPU.
@@ -21,7 +23,7 @@ from repro_torch import resolve_device
 from repro_torch.kernels import (LAUNCHES, _host, launch_on,
                                  on_card, ref, require, stream_of)
 
-MAX_SEG = 32 * 32 * 16      # a 1024-thread team, 16 counters a thread
+TEAM_SEG = 32 * 32 * 16     # a 1024-thread team, 16 counters a thread
 
 
 def tracker_select(counts: torch.Tensor, indices: torch.Tensor, k: int,
@@ -31,8 +33,8 @@ def tracker_select(counts: torch.Tensor, indices: torch.Tensor, k: int,
 
     Row ids reaching past N are padding-segment picks; callers drop them.
     The caller's ``counts`` are left as they were.  The checks (contiguous
-    1-D int32 on one device, 1 <= k, seg <= ``MAX_SEG``), allocation and
-    launch run in the C++ host module."""
+    1-D int32 on one device, 1 <= k), allocation and launch run in the C++
+    host module."""
     require(counts.is_cuda, "tracker_select launches a CUDA kernel: counts "
             "must be on a CUDA device")
     out = launch_on(counts.get_device(), _host.module().tracker_select,

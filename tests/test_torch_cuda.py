@@ -6,8 +6,11 @@ inside the ``card`` fixture, never at import).  On a GPU machine:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Edge shapes the full-width smoke run does not reach: 1 to 26 tables of
-ragged row counts with out-of-range ids in one embedding launch, ragged
-segments, seg from 7 to MAX_SEG, k > seg and k = seg, ties everywhere,
+ragged row counts with out-of-range ids in one embedding launch, 65 and
+130 tables (groups of 64, a launch each), rows that are not whole
+16-byte chunks (f32 d = 1, 3, 5; bf16 d = 4) or start mid-row, ragged
+segments, seg from 7 to TEAM_SEG and past it (16,385, 65,536, one
+1,000,000-row segment), k > seg and k = seg, ties everywhere,
 counts near INT32_MAX, N < seg, empty and invalid pending ids; raw
 (unsorted, repeated) candidates, none, 8,192 (one tile) and up to 65,536
 of them (values repeated across tiles), a one-slot reservoir, overflow
@@ -23,7 +26,8 @@ import torch
 
 from repro_torch.kernels import LAUNCHES, ops, ref
 from repro_torch.kernels.ssu_dedupe import TILE
-from repro_torch.kernels.tracker_select import MAX_SEG
+from repro_torch.kernels import embedding_bag as eb
+from repro_torch.kernels.tracker_select import TEAM_SEG
 
 pytestmark = pytest.mark.card
 
@@ -124,7 +128,6 @@ def test_embedding_bags_backward_kernel(card, T, hot):
 
 
 def test_embedding_bags_kernel_refuses(card):
-    from repro_torch.kernels import embedding_bag as eb
     sparse = torch.zeros((2, 2, 1), dtype=torch.int32, device=card)
     a = torch.zeros((4, 16), device=card)
     with pytest.raises(ValueError, match="one dtype"):
@@ -135,9 +138,96 @@ def test_embedding_bags_kernel_refuses(card):
         eb.forward([a, torch.zeros((4, 32), device=card)[:, ::2]], sparse)
     with pytest.raises(ValueError, match="tables"):
         eb.forward([a] * 3, sparse)
-    with pytest.raises(ValueError, match="at most|1 to 64"):
-        eb.forward([a] * 65, torch.zeros((2, 65, 1), dtype=torch.int32,
-                                         device=card))
+    with pytest.raises(ValueError, match="at least one"):
+        eb.forward([], sparse)
+
+
+def _tables_of(card, rng, rows, d, dtype, view):
+    """Tables of ``rows`` (N_t, d); ``view``: each a contiguous view that
+    starts one element past its allocation (so mid-row, and never 16-byte
+    aligned)."""
+    out = []
+    for n in rows:
+        x = torch.from_numpy(rng.normal(size=n * d + view).astype(np.float32))
+        x = x.to(card).to(dtype)
+        out.append(x[view:].view(n, d))
+    return out
+
+
+_WIDE_BAGS = [
+    # T > 64: groups of 64 tables, a launch each way per group
+    (65, 16, torch.float32, False), (130, 16, torch.float32, False),
+    (65, 3, torch.float32, False), (130, 8, torch.bfloat16, False),
+    # rows that are not whole 16-byte chunks: the element path
+    (3, 1, torch.float32, False), (3, 3, torch.float32, False),
+    (26, 5, torch.float32, False), (4, 4, torch.bfloat16, False),
+    # views that start mid-row (d = 16 would be whole chunks)
+    (26, 16, torch.float32, True), (3, 8, torch.bfloat16, True),
+]
+
+
+@pytest.mark.parametrize("hot", [1, 2])
+@pytest.mark.parametrize("T,d,dtype,view", _WIDE_BAGS)
+def test_embedding_bags_kernel_any_count_and_width(card, T, d, dtype, view,
+                                                   hot):
+    """Equal to the plain version under ``torch.equal``: at most two
+    lookups a bag, so the kernel's f32 sum (0 + a + b) is the plain
+    version's in any order; out-of-range ids point at a zero row the plain
+    version is given."""
+    rng = np.random.default_rng(T * 100 + d + hot + view)
+    rows = [int(n) for n in rng.integers(1, 400, size=T)]
+    tables = _tables_of(card, rng, rows, d, dtype, int(view))
+    B = 16
+    sparse = torch.from_numpy(np.stack(
+        [rng.integers(-2, n + 2, size=(B, hot)) for n in rows],
+        axis=1).astype(np.int32)).to(card)
+    before = LAUNCHES["embedding_bag"]
+    got = ops.embedding_bags(tables, sparse)
+    assert LAUNCHES["embedding_bag"] - before == eb.launches(T) == -(-T // 64)
+    assert got.shape == (B, T, d) and got.dtype == dtype
+    for t, table in enumerate(tables):
+        padded = torch.cat([table, table.new_zeros((1, d))])
+        want = ref.embedding_bag(padded, _in_range(sparse, rows, t))
+        assert torch.equal(got[:, t], want), t
+
+
+@pytest.mark.parametrize("hot", [1, 3])
+@pytest.mark.parametrize("T,d,dtype,view", _WIDE_BAGS)
+def test_embedding_bags_backward_kernel_any_count_and_width(card, T, d,
+                                                            dtype, view,
+                                                            hot):
+    """Every table's dense gradient, read through a strided output
+    gradient whose rows are not 16-byte aligned (the element path) or are
+    (d % 4 == 0 and an aligned view: the vector path)."""
+    rng = np.random.default_rng(T * 10 + d + hot + view)
+    rows = [int(n) for n in rng.integers(1, 400, size=T)]
+    tables = [t.requires_grad_(True) for t in
+              _tables_of(card, rng, rows, d, dtype, int(view))]
+    B = 16
+    sparse = torch.from_numpy(np.stack(
+        [rng.integers(-2, n + 2, size=(B, hot)) for n in rows],
+        axis=1).astype(np.int32)).to(card)
+    w = torch.from_numpy(rng.normal(size=(B, T + 1, d)).astype(np.float32)
+                         ).to(card)
+    before = LAUNCHES["embedding_bag_backward"]
+    out = ops.embedding_bags(tables, sparse)
+    feats = torch.cat([torch.zeros_like(out[:, :1]), out], dim=1)
+    (feats.float() * w).sum().backward()
+    assert LAUNCHES["embedding_bag_backward"] - before == eb.launches(T)
+    # the output gradient reaches the kernel in the output's dtype (a bf16
+    # output rounds it), and the kernel sums it in f32
+    g = w.to(dtype).float()
+    for t, table in enumerate(tables):
+        want = ref.embedding_bag_backward(g[:, t + 1],
+                                          _in_range(sparse, rows, t),
+                                          rows[t] + 1)[:rows[t]]
+        assert table.grad.dtype == dtype
+        # atomic adds in run-dependent order: f32 rounding of the row sums,
+        # and for bf16 tables the sum rounded once to bf16 (one step of
+        # 2**-8 where the two sums straddle a rounding edge)
+        rtol = 1e-5 if dtype == torch.float32 else 1e-2
+        torch.testing.assert_close(table.grad.float(), want.to(dtype).float(),
+                                   rtol=rtol, atol=1e-5)
 
 
 def _counts(rng, N, dist):
@@ -162,7 +252,7 @@ _TS_CASES = [
                            (512, 0, 10, 128), (513, 11, 4, 256),
                            (100, 50, 100, 512), (300, 40, 700, 64),
                            (100_003, 5000, 64, 2048)]),
-    # the redesign's edges: seg 7, 33, 512, 2048, MAX_SEG; k = seg; ties
+    # the redesign's edges: seg 7, 33, 512, 2048, TEAM_SEG; k = seg; ties
     # everywhere; Zipf counts, mostly 0; counts near INT32_MAX; N < seg
     (1000, 30, 3, 7, "uniform"), (1000, 30, 7, 7, "equal"),
     (5000, 100, 5, 33, "zipf"), (990, 0, 33, 33, "uniform"),
@@ -172,9 +262,19 @@ _TS_CASES = [
     # pending ids fold counters near INT32_MAX past it (int32 wrap)
     (10_000, 2048, 64, 512, "near_max"), (9000, 3000, 64, 2048, "near_max"),
     (20_000, 0, 2048, 2048, "zipf"), (700, 10, 64, 2048, "uniform"),
-    (40_000, 100, 300, MAX_SEG, "uniform"),
-    (20_000, 0, MAX_SEG, MAX_SEG, "zipf"), (300, 10, 64, 512, "zipf"),
+    (40_000, 100, 300, TEAM_SEG, "uniform"),
+    (20_000, 0, TEAM_SEG, TEAM_SEG, "zipf"), (300, 10, 64, 512, "zipf"),
     (1, 0, 1, 512, "uniform"),
+    # past TEAM_SEG: a block per segment, selecting in device memory;
+    # ragged last segments, ties, k = seg, folds past INT32_MAX, one
+    # 1,000,000-row table as a single segment (seg_size >= N too)
+    (40_000, 300, 64, TEAM_SEG + 1, "uniform"),
+    (2 * (TEAM_SEG + 1), 100, TEAM_SEG + 1, TEAM_SEG + 1, "equal"),
+    (200_000, 2048, 300, 65_536, "zipf"),
+    (150_000, 3000, 1000, 65_536, "near_max"),
+    (1_000_000, 5000, 64, 1_000_000, "uniform"),
+    (1_000_000, 5000, 125_000, 1_000_000, "zipf"),
+    (1_000_000, 100, 1000, 2_000_000, "near_max"),
 ]
 
 

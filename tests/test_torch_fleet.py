@@ -434,3 +434,39 @@ def test_full_saves_between_fences_are_not_pinned():
         tracemalloc.stop()
     assert held < 3 * snap_bytes, held
     fleet.close()
+
+
+@pytest.mark.parametrize("mux_group", [0, 2])
+def test_socket_fleet_starts_its_servers_together(mux_group):
+    """A new socket fleet without addresses starts its owned loopback
+    servers together (one per shard, or one per mux group), and each is a
+    real process: the fleet saves and restores through them, a killed
+    shard is re-admitted through a server spawned on its own, and closing
+    the fleet stops every server at once."""
+    import time
+    tables, accs, _ = make_state()
+    spec = T.EmbShardSpec(SIZES, N_SHARDS)
+    opts = {"mux_group": mux_group} if mux_group else {}
+    fleet = TWriter(tables, accs, spec, backend="socket", delta_saves=False,
+                    transport_options=opts)
+    pids = [ep.pid for ep in fleet.transport.endpoints]
+    assert len(set(pids)) == (2 if mux_group else N_SHARDS)
+    fleet.save_full([t + 1 for t in tables], [a + 1 for a in accs], step=1)
+    fleet.fence()
+    fleet.kill_shard(N_SHARDS - 1)
+    fleet.save_full([t + 2 for t in tables], [a + 2 for a in accs], step=2)
+    with pytest.raises(T.ShardSaveError):
+        fleet.fence()
+    assert fleet.readmit([t + 2 for t in tables], [a + 2 for a in accs],
+                         step=3) == [N_SHARDS - 1]
+    fleet.fence()
+    got_t, got_a, _ = fleet.restore_all()
+    procs = [p for p in (ep._server_proc or ep._shared_server
+                         for ep in fleet.transport.endpoints) if p]
+    t0 = time.monotonic()
+    fleet.close()
+    assert time.monotonic() - t0 < 5.0 and not any(p.is_alive()
+                                                    for p in procs)
+    for t in range(len(SIZES)):
+        np.testing.assert_array_equal(got_t[t], tables[t] + 2)
+        np.testing.assert_array_equal(got_a[t], accs[t] + 2)

@@ -45,7 +45,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
               "repro_torch.kernels.flash_attention",
               "repro_torch.kernels.rglru_scan", "benchmarks_torch.run",
               "benchmarks_torch.fig7_overhead",
-              "benchmarks_torch.fig14_async_save"):
+              "benchmarks_torch.fig14_async_save",
+              "benchmarks_torch.fig15_sharded_save",
+              "benchmarks_torch.fig16_reshard", "benchmarks_torch.fig17_wire"):
         assert m in mods, m
     examples = [str(p) for p in EXAMPLES]
     assert len(examples) == 2, examples
