@@ -20,7 +20,8 @@ they lie, through the ``row_hash`` kernel on the card.  Each event is
 timed from the call to its return with the device synchronised on both
 sides (``common.time_events``); the drain between events is outside the
 window.  ``kinds`` (plumbing, default every kind) picks which of the
-reference's row kinds to run.
+reference's row kinds to run, ``backends`` (default both) which
+``save_event`` backends.
 """
 from __future__ import annotations
 
@@ -199,7 +200,8 @@ def _bench_delta(sizes, d, n_shards, r, changed_frac, device):
 
 
 def run(max_rows=20_000, n_shards=(1, 2, 4, 8), events=4, r=0.125,
-        changed_frac=0.1, lost_shards=None, device=None, kinds=KINDS):
+        changed_frac=0.1, lost_shards=None, device=None, kinds=KINDS,
+        backends=("memory", "disk")):
     dev = resolve_device(device)
     cfg = get_config("kaggle", max_rows)
     sizes, d = cfg.table_sizes, cfg.emb_dim
@@ -207,7 +209,7 @@ def run(max_rows=20_000, n_shards=(1, 2, 4, 8), events=4, r=0.125,
     rows = []
     if "save_event" in kinds:
         for n in n_shards:
-            for backend in ("memory", "disk"):
+            for backend in backends:
                 if backend == "disk":
                     with tempfile.TemporaryDirectory() as tmp:
                         sync_ms, sharded_ms, delta_ms, ok = _bench_shards(

@@ -36,7 +36,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    widened contracts, timed beside their plain versions and equal to
    them: ``tracker_select`` at segments of 65,536 rows (past a team's
    16,384: a block a segment), ``embedding_bags`` over the 26 tables as
-   12-byte rows (the element path) and over 130 tables (groups of 64).
+   12-byte rows (the element path) and over 130 tables (groups of 64),
+   each beside the library calls (``F.embedding_bag`` and
+   ``aten.embedding_dense_backward`` over a concatenated copy).
 3. The main path: the port's ``Emulator`` trains the unscaled Criteo-Kaggle
    DLRM (26 tables, 33,762,577 rows, d = 16) under 2 injected failures in
    modes ``full``, ``cpr-mfu`` and ``cpr-ssu`` (kernel tracker backend),
@@ -77,21 +79,23 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    set from ``python -m benchmarks_torch.fig7_spread``); (c) ``table1``
    and ``fig14`` at ``--fast`` size (``fig14``'s selection must launch
    ``tracker_select`` and equal the plain version, and its engines' bytes
-   agree); (d) both ``examples/torch_*.py`` as processes on the card,
-   each exiting 0 with its summary lines.  Rows print with the card's
+   agree); (d) the three ``examples/torch_*.py`` as processes on the
+   card, each exiting 0 with its summary lines (the LM example at 30
+   steps: its f32 attention runs the f32 kernels both ways).  Rows print with the card's
    ``nvidia-smi`` name and power limit.
 6. The fleet figures (``benchmarks_torch`` fig15-17) on the card, the
    trainer's tables on the device: (a) fig15 at the published Kaggle
    width (33,762,577 rows, d = 16, 2.30 GB of tables and accumulators),
-   8 shards, one event: save events (memory, disk) and delta saves; its
+   8 shards, one event: save events (memory) and delta saves; its
    ``delta_save`` rows must equal the same rows computed on the CPU (the
-   plain hash); (b) at ``--fast`` size (26,777 rows), 2 shards: the pipe
-   fleet's shm against spool snapshots, the socket fleet and its codec
-   row (zlib level 6), the bytes a writer crash loses with and without
-   XOR parity, and a re-admission; (c) fig16 (inproc and pipe, the 2 -> 4
-   split) and fig17 (2 shards) at ``--fast`` size, fig17's
-   ``hash_kernel`` at the largest Kaggle table's 10,131,227 x 16 (the
-   cuts and why: FIG15_FULL).  Every audit field must be true and
+   plain hash); (b) at ``--fast`` size (26,777 rows), 2 shards: save
+   events (memory, disk), the pipe fleet's shm against spool snapshots,
+   the socket fleet and its codec row (zlib level 6), the bytes a writer
+   crash loses with and without XOR parity, and a re-admission; (c) fig16
+   (inproc and pipe, the 2 -> 4 split) and fig17 (2 shards) at ``--fast``
+   size, fig17's ``hash_kernel`` at the largest Kaggle table's
+   10,131,227 x 16 (the cuts and why: FIG15_FULL).  Every audit field must
+   be true and
    ``unchanged_resave_bytes`` 0; the phase
    must launch ``row_hash`` (its count goes in the kernels line as
    ``harness_launches``); no pipe writer or socket server process may
@@ -118,6 +122,23 @@ freed first):
    of the dtype's arithmetic (bf16 tensor cores, f32 FMA) or the bytes,
    whichever is larger; library time: ``F.scaled_dot_product_attention``
    with the band as its mask where there is no softcap.
+2c. The backward kernels against their plain backwards at the training
+   path's shapes: attention bf16 (8, 10, 512, 256) over (8, 1, 512, 256)
+   with window 2,048 (the training run's), (2, 10, 4096, 256) over (2, 1,
+   4096, 256) (the window bites), gemma2's (1, 8, 4096, 256) over (1, 4,
+   4096, 256) global with softcap 50, and f32 (4, 8, 128, 64) over (4, 4,
+   128, 64) with window 256 (the LM example's), within
+   ``BWD_TOL`` (|kernel - plain| <= rtol |plain| + atol max|plain|; the
+   plain backward with its window one key tile (32) short must fall
+   outside it); the scan's at (8, 512, 2560) and (2, 4096, 2560), f32 and
+   bf16, under ``torch.equal``.  Each with its time (CUDA events, median
+   of 25), its kernels' own device time (profiler), the plain version's
+   time, its bound (2.5 times the forward's band flops at the dtype's
+   peak, or the bytes; the scan: a, h, dh read, da, db written) and the
+   backward of ``F.scaled_dot_product_attention`` with the band mask
+   (no softcap) or, for the scan, one ``torch.add`` over the same bytes.
+   Autograd through ``ops.flash_attention`` and ``ops.rglru_scan`` on the
+   card gives gradients equal to the backward kernels'.
 3b. The main path: RecurrentGemma-2B parameters (f32) drawn on the card,
    one prefill ``forward`` over (2, 4096) tokens in bf16, then ``serve()``
    answers 8 requests (prompts up to 64 tokens, batch 4, 32 generated).
@@ -135,7 +156,29 @@ freed first):
    same ``forward`` logits within 1e-4 and identical greedy ``serve()``
    completions.
 
-The last two lines are ``{"kernels": [...]}`` and ``{"ok": true, ...}``.
+LM training with CPR over the token rows (RecurrentGemma-2B):
+
+7. (a) The main path: ``launch.train.train`` at full width and depth
+   (f32 parameters, bf16 activations), batch 8 x 512, 2 failures of 25 %
+   of 8 shards, ``TRAIN_STEPS`` steps a mode, the kernel tracker backend:
+   ``full`` and ``cpr-ssu`` on the flat store, ``cpr-mfu`` on the inproc
+   fleet with delta saves hashed by ``row_hash``.  Counts reset before
+   each mode and read after: every step launches ``flash_attention`` and
+   its backward 8 times and ``rglru_scan`` and its backward 18 times;
+   ``cpr-mfu`` launches ``tracker_select`` and ``row_hash``, ``cpr-ssu``
+   ``ssu_dedupe_evict``.  Every loss finite, every gradient leaf non-zero
+   after step 0, partial restores in the priority modes; the steady step
+   ms (median of steps 2..), peak memory, save-blocked seconds and the
+   report's policy fields print.  (b) One pattern period (RG-LRU, RG-LRU,
+   local attention) at full width in f32 over (1, 2,176) tokens, the same
+   parameters on the card and the CPU: ``lm_loss`` within 1e-5 relative,
+   every gradient leaf within ``GRAD_AGREE`` of its largest entry.  (c)
+   The reduced config trained on the card and the CPU from the same
+   parameters: identical policy fields, step 0's loss within 1e-5 and
+   every loss within ``TRAIN_AGREE`` (its comment says why).
+
+The script prints its time after every phase.  The last two lines are
+``{"kernels": [...]}`` and ``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
@@ -183,6 +226,41 @@ FLASH_CASES = (
     ("recurrentgemma-2b f32 (phase 4b)", (2, 10, 1, AGREE_SEQ, 256),
      torch.float32, 2048, 0.0, (2e-5, 2e-5)))
 KEY_TILE = 64                # keys per tile of csrc/flash_attention_bf16.cu
+# phase 2c: the backward kernels.  Attention cases: name, (B, Hq, Hkv, S,
+# hd), dtype, window, softcap; the first is the training path's own.  The
+# kernel and the plain backward read the same q, k, v, output and output
+# gradient and both compute in f32, in another order: the limit is
+# |kernel - plain| <= rtol * |plain| + atol * max |plain|, by dtype.  f32:
+# the order of the f32 sums (1e-4, 1e-5); bf16 adds one rounding of each
+# gradient to bf16 (at most 2**-8 of the value, nearest): (1e-2, 5e-3)
+BWD_FLASH_CASES = (
+    ("recurrentgemma-2b training", (8, 10, 1, 512, 256), torch.bfloat16,
+     2048, 0.0),
+    ("recurrentgemma-2b, window bites", (2, 10, 1, 4096, 256),
+     torch.bfloat16, 2048, 0.0),
+    ("gemma2-2b global", (1, 8, 4, 4096, 256), torch.bfloat16, 0, 50.0),
+    ("lm-100m example", (4, 8, 4, 128, 64), torch.float32, 256, 0.0))
+BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 5e-3)}
+BWD_KEY_TILE = 32            # keys per tile of csrc/flash_attention_backward.cu
+BWD_SCAN_SHAPES = ((8, 512, 2560), (2, 4096, 2560))
+# phase 7: training RecurrentGemma-2B at full width (batch 8 x 512 tokens,
+# 2 failures of 25 % of 8 shards); steps a mode, and steps 2.. are steady
+TRAIN_SHAPE = (8, 512)
+TRAIN_STEPS = 6              # cut from 12: the time limit (PERF.md section 4)
+# 7 (b): one pattern period (RG-LRU, RG-LRU, local attention) at full width
+# in f32 over AGREE_SEQ tokens, card against CPU.  The loss within 1e-5
+# relative, each gradient leaf within GRAD_AGREE of its largest entry: f32
+# sums over 2,560-wide rows and a 256,000-word vocabulary in another order
+# (cuBLAS and the kernels against the CPU's BLAS and plain versions)
+GRAD_AGREE = 1e-4
+# 7 (c): the reduced config trained on the card and the CPU.  Step 0's
+# loss (no update yet) within 1e-5 relative; every step's within
+# TRAIN_AGREE.  Traced step by step (``python -m
+# benchmarks_torch.lm_train_spread``, PERF.md section 6) the card reads at
+# most 1.9e-6 from the CPU over 8 steps, the same saves and restores; the
+# CPU at one thread reads up to 8.2e-6 from itself, and gradients off by
+# 1e-5 of their size at every step 4.4e-5
+TRAIN_AGREE = 1e-4
 SCAN_SHAPE = (2, 4096, 2560)  # the RG-LRU layers' (B, S, width) at prefill
 SCRATCH = Path(__file__).resolve().parent / "build" / "chip_smoke"
 # phase 5: the benchmark harness.  fig7's policy fields must be equal on the
@@ -197,9 +275,16 @@ FIG7_POLICY = ("overhead_frac", "save_h", "load_h", "lost_h", "resched_h",
 FIG7_HELD = ("full", "cpr-mfu")
 FIG7_AUC_GAP = 3e-2       # measured up to 1.33e-2; untrained 0.34 away
 FIG7_LOGLOSS_GAP = 0.2    # measured up to 5.13e-2; untrained 0.23 away
-EXAMPLE_LINES = {    # example -> (a summary line, how many it prints)
-    "torch_quickstart.py": (r"^\s*(full|cpr-mfu) auc=0\.\d{4} pls=", 2),
-    "torch_cpr_tradeoff.py": (r"^  PLS=\S+\s+auc=0\.\d{4} overhead=", 3)}
+# example -> (a summary line, how many it prints, its arguments); the LM
+# example trains its f32 model (the f32 attention kernels, both ways) for
+# 20 steps instead of 200 (the time limit: 50 steps took 42.6 s on the
+# card, a dozen compressed persists of the whole trainer tree among them)
+EXAMPLE_LINES = {
+    "torch_quickstart.py": (r"^\s*(full|cpr-mfu) auc=0\.\d{4} pls=", 2, ()),
+    "torch_cpr_tradeoff.py": (r"^  PLS=\S+\s+auc=0\.\d{4} overhead=", 3,
+                              ()),
+    "torch_train_lm_with_cpr.py": (r"^mode=cpr-mfu effective=cpr-mfu pls=", 1,
+                                   ("--steps", "20"))}
 PROBE_ENV = "CHIP_SMOKE_WRITER_PROBE_DIR"
 # phase 6: the fleet figures.  Audit fields that must be true in every row
 # that has them; the disk and host memory the full-width fig15 needs (two
@@ -214,18 +299,22 @@ FLEET_DISK_BYTES = 12e9
 FLEET_RAM_BYTES = 32e9
 # fig15 at the published width: 8 shards, one event (cut from 2: the flat
 # store persists 2.3 GB compressed on one core, 110 s an event on the
-# card's host).  Every fleet of writer processes (pipe, socket, the crash
-# and re-admission drills) takes minutes at that width on that host (the
-# socket fleet 108 s for one event, the pipe fleet's image fetch alone
-# more than 690 s; PERF.md section 6), so those kinds run at --fast size,
-# with 2 shards, as fig16 (one transition of two) and fig17 (2 shards)
-# do: each spawned writer or server takes seconds to start there
+# card's host), the memory backend only: its disk event (that persist,
+# 107.7-134.4 s on the card's hosts) runs at --fast size with the fleets,
+# so that the script, LM training included, stays inside its time limit
+# on the card's slower hosts.  Every fleet of writer processes (pipe,
+# socket, the crash and re-admission drills) takes minutes at that width
+# on that host (the socket fleet 108 s for one event, the pipe fleet's
+# image fetch alone more than 690 s; PERF.md section 6), so those kinds run
+# at --fast size, with 2 shards, as fig16 (one transition of two, inproc
+# and pipe) and fig17 (2 shards) do: each spawned writer or server takes
+# seconds to start
 FIG15_FULL = {"n_shards": (8,), "events": 1, "lost_shards": (8,),
-              "kinds": ("save_event", "delta_save")}
+              "kinds": ("save_event", "delta_save"), "backends": ("memory",)}
 FIG15_FLEETS = {"n_shards": (2,), "lost_shards": (2,),
-                "kinds": ("pipe_snapshot_path", "socket_save_event",
-                          "socket_wire_bytes", "bytes_lost_at_crash",
-                          "readmission")}
+                "kinds": ("save_event", "pipe_snapshot_path",
+                          "socket_save_event", "socket_wire_bytes",
+                          "bytes_lost_at_crash", "readmission")}
 FIG16_CUT = {"transitions": ((2, 4),)}
 FIG17_CUT = {"n_shards": 2}
 
@@ -320,12 +409,15 @@ def device_events(fn, reps: int = 10, tries: int = 3):
     return []
 
 
-def device_ms(fn, kernel: str, reps: int = 10):
+def device_ms(fn, kernel, reps: int = 10):
     """(the named kernel's, all kernels') device time per call of ``fn``
     under ``torch.profiler``, or (None, None) where the profiler saw no
-    device time."""
+    device time.  ``kernel``: a name, or a tuple of the names of one
+    call's kernels."""
+    names = (kernel,) if isinstance(kernel, str) else kernel
     events = device_events(fn, reps)
-    own = sum(e.device_time_total for e in events if kernel in e.key)
+    own = sum(e.device_time_total for e in events
+              if any(n in e.key for n in names))
     every = sum(e.device_time_total for e in events)
     if not every:
         return None, None
@@ -485,7 +577,10 @@ def phase_wide_contracts(dev, eb, ts, ref, rng, gen):
     rows of 3 f32 (12-byte rows: the element path) and over 130 tables
     (the 26, five times: groups of 64, three launches each way).  Each
     equals its plain version (``torch.equal``; the backward within 1e-5
-    of the largest gradient, atomic adds) and is timed beside it."""
+    of the largest gradient, atomic adds) and is timed beside it and
+    beside the library calls of ``phase_embedding_bags`` over a
+    concatenated copy."""
+    import torch.nn.functional as F
     from repro_torch.configs.dlrm import DLRM_KAGGLE
     from repro_torch.kernels import LAUNCHES
     seg, k = 65_536, 64
@@ -548,7 +643,22 @@ def phase_wide_contracts(dev, eb, ts, ref, rng, gen):
         if not ok or launched != (-(-T // eb.GROUP),) * 2:
             fail(f"embedding_bags over {name} disagrees with its plain "
                  f"version or took {launched} launches")
-        del tables, out, grads, want
+        del out, grads, want
+        # the library yardstick, as phase_embedding_bags: one call over a
+        # concatenated copy, built outside the timed region
+        starts = np.cumsum([0] + rows[:-1])
+        cat = torch.cat(tables)
+        flat = (sp.long() + torch.as_tensor(starts, device=dev)[None, :, None]
+                ).reshape(-1)
+        offsets = torch.arange(0, B * T, 1, device=dev)
+        lib_f = time_ms(lambda: F.embedding_bag(flat, cat, offsets,
+                                                mode="sum"))
+        lib_b = time_ms(lambda: torch.ops.aten.embedding_dense_backward(
+            grad_out.reshape(-1, d), flat, sum(rows), -1, False))
+        print(f"embedding_bags {name}: library_ms={lib_f:.4f} "
+              f"(F.embedding_bag, concatenated) backward library_ms="
+              f"{lib_b:.4f} (aten.embedding_dense_backward)")
+        del tables, cat, flat
         torch.cuda.empty_cache()
 
 
@@ -1259,10 +1369,10 @@ def phase_harness(dev, kernels, cfg):
     # (d) the examples, each a process of its own on the card
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
-    for script, (mark, n_lines) in EXAMPLE_LINES.items():
+    for script, (mark, n_lines, args) in EXAMPLE_LINES.items():
         t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, str(root / "examples" / script)],
-                           env=env, capture_output=True, text=True,
+        r = subprocess.run([sys.executable, str(root / "examples" / script),
+                            *args], env=env, capture_output=True, text=True,
                            timeout=600)
         print(f"examples/{script} (exit {r.returncode}, "
               f"{time.perf_counter() - t0:.1f} s):")
@@ -1389,6 +1499,7 @@ def phase_lm_kernels(dev, ops, ref):
     return rows
 
 
+@torch.no_grad()
 def phase_serving(dev, kernels, cfg):
     """The serving path at full width (phase 3b): one prefill ``forward``
     over ``PREFILL_SHAPE`` tokens, then ``serve()`` answers 8 requests;
@@ -1474,6 +1585,7 @@ def phase_serving(dev, kernels, cfg):
     return params, counts
 
 
+@torch.no_grad()
 def phase_lm_agreement(dev, params, cfg, small):
     """Prefill against decode at full width in f32 over AGREE_SEQ tokens,
     then the ``small`` config on the card against the CPU (phase 4b)."""
@@ -1538,6 +1650,324 @@ def phase_lm_agreement(dev, params, cfg, small):
         fail("the reduced model on the card disagrees with the CPU path")
 
 
+def bwd_excess(got, want, rtol, atol):
+    """max |got - want| and its largest ratio to the limit rtol * |want| +
+    atol * max |want|, over the gradients ``got`` and ``want``."""
+    err = ratio = 0.0
+    for a, b in zip(got, want):
+        diff = (a.float() - b.float()).abs()
+        limit = rtol * b.float().abs() + atol * b.float().abs().max()
+        err = max(err, diff.max().item())
+        ratio = max(ratio, (diff / limit).max().item())
+    return err, ratio
+
+
+def phase_lm_backward(dev, ops, ref):
+    """The backward kernels against their plain backwards at the training
+    path's shapes, and autograd through ``ops`` on the card equal to them
+    (phase 2c)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rg
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = {}
+    for name, (B, Hq, Hkv, S, hd), dtype, window, cap in BWD_FLASH_CASES:
+        q, k, v, do = (torch.randn((B, S, h, hd), generator=gen, device=dev)
+                       .to(dtype) for h in (Hq, Hkv, Hkv, Hq))
+        qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+        out = fa.flash_attention(qt, kt, vt, True, window, cap)
+
+        def kernel():
+            return fa.flash_attention_backward(qt, kt, vt, out, dot, True,
+                                               window, cap)
+
+        def plain(w=window):
+            return ref.flash_attention_backward(qt, kt, vt, out, dot, True,
+                                                w, cap)
+
+        got, want = kernel(), plain()
+        rtol, atol = BWD_TOL[dtype]
+        err, ratio = bwd_excess(got, want, rtol, atol)
+        del got
+        off = None
+        if window and window < S:
+            # the plain backward with its window one key tile short: what
+            # a kernel whose band edge sat one tile off would give
+            off = bwd_excess(plain(window - BWD_KEY_TILE), want, rtol, atol)
+        del want
+        pairs = B * Hq * band_pairs(S, S, True, window)
+        rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+        nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
+        t_b, by = bound(nbytes, ops=2.5 * 4 * hd * pairs, ops_per_s=rate)
+        library = None
+        if not cap:   # one PyTorch call's backward computes the same thing
+            i = torch.arange(S, device=dev)
+            band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :]
+                                                 < (window or S + 1))
+            lq, lk, lv = (x.detach().requires_grad_(True)
+                          for x in (qt, kt, vt))
+            lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=band,
+                                                enable_gqa=True)
+            library = time_ms(lambda: torch.autograd.grad(
+                lo, (lq, lk, lv), dot, retain_graph=True))
+            del lo, lq, lk, lv, band
+        own, _ = device_ms(kernel, ("lse_delta", "dkdv", "dq_kernel"))
+        row = dict(max_abs_err=err, ms=time_ms(kernel),
+                   plain_ms=time_ms(plain, reps=5, warmup=1), bound_ms=t_b,
+                   bound_by=by, library_ms=library)
+        ok = ratio <= 1.0
+        print(f"flash_attention_backward {name}: q {tuple(q.shape)} k "
+              f"{tuple(k.shape)} {str(dtype)[6:]} window={window} "
+              f"softcap={cap} pairs={pairs} max_abs_err={err:.3e} limit "
+              f"|err| <= {rtol:g}*|plain| + {atol:g}*max|plain| (largest "
+              f"share of it {ratio:.3f}) ok={ok} ms={row['ms']:.4f} (CUDA "
+              f"events) kernel device ms="
+              f"{'not measured' if own is None else f'{own:.4f}'} "
+              f"(profiler, its three kernels) plain_ms="
+              f"{row['plain_ms']:.4f} bound_ms={t_b:.5f} ({by}) "
+              f"library_ms={library} (the backward of "
+              f"F.scaled_dot_product_attention, band mask)")
+        if off is not None:
+            print(f"  window one key tile ({BWD_KEY_TILE}) short would read: "
+                  f"max_abs_err={off[0]:.3e}, {off[1]:.1f} times the limit")
+            if off[1] <= 1.0:
+                fail(f"the flash_attention_backward {name} limit would not "
+                     f"see a window one tile off")
+        if not ok:
+            fail(f"flash_attention_backward {name} disagrees with its plain "
+                 f"version")
+        if name == BWD_FLASH_CASES[0][0]:
+            rows["flash_attention_backward"] = row
+            # autograd through ops on the card gives the kernel's gradients
+            live = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            o = ops.flash_attention(*live, causal=True, window=window,
+                                    softcap=cap)
+            auto = torch.autograd.grad(o, live, do)
+            mine = fa.flash_attention_backward(
+                *(x.transpose(1, 2) for x in (*live, o.detach())), dot, True,
+                window, cap)
+            same = o.grad_fn is not None and all(
+                torch.equal(a, b.transpose(1, 2)) for a, b in zip(auto, mine))
+            print(f"  autograd through ops.flash_attention on the card: "
+                  f"gradients equal to the backward kernel's={same}")
+            if not same:
+                fail("ops.flash_attention's gradient on the card is not the "
+                     "backward kernel's")
+            del live, o, auto, mine
+        del q, k, v, do, qt, kt, vt, dot, out
+        torch.cuda.empty_cache()
+
+    for shape in BWD_SCAN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            a = torch.sigmoid(torch.randn(shape, generator=gen, device=dev)
+                              ).to(dtype)
+            b = (torch.randn(shape, generator=gen, device=dev) * 0.1
+                 ).to(dtype)
+            dh = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            h = ops.rglru_scan(a, b)
+            got = rg.rglru_scan_backward(a, h, dh)
+            want = ref.rglru_scan_backward(a, h, dh)
+            equal = all(torch.equal(x, y) for x, y in zip(got, want))
+            err = max((x.float() - y.float()).abs().max().item()
+                      for x, y in zip(got, want))
+            nbytes = 5 * a.numel() * a.element_size()
+            t_b, by = bound(nbytes, ops=3 * a.numel())
+            own, _ = device_ms(lambda: rg.rglru_scan_backward(a, h, dh),
+                               "rglru_scan_bwd")
+            # a yardstick, not the same function: one elementwise add over
+            # the same bytes (two inputs read, one output written)
+            n = nbytes // (3 * a.element_size())
+            x, y, z = (torch.empty(n, dtype=dtype, device=dev)
+                       for _ in range(3))
+            add_ms = time_ms(lambda: torch.add(x, y, out=z))
+            row = dict(max_abs_err=err,
+                       ms=time_ms(lambda: rg.rglru_scan_backward(a, h, dh)),
+                       plain_ms=time_ms(
+                           lambda: ref.rglru_scan_backward(a, h, dh),
+                           reps=5, warmup=1),
+                       bound_ms=t_b, bound_by=by, library_ms=None)
+            print(f"rglru_scan_backward {shape} {str(dtype)[6:]}: "
+                  f"torch.equal={equal} max_abs_err={err:.3e} "
+                  f"ms={row['ms']:.4f} (CUDA events) kernel device ms="
+                  f"{'not measured' if own is None else f'{own:.4f}'} "
+                  f"(profiler) plain_ms={row['plain_ms']:.4f} bound_ms="
+                  f"{t_b:.5f} ({by}) library_ms=None (no PyTorch call); "
+                  f"yardstick torch.add over the same bytes ms={add_ms:.4f}")
+            if not equal:
+                fail("rglru_scan_backward disagrees with its plain version")
+            if shape == BWD_SCAN_SHAPES[0] and dtype == torch.float32:
+                rows["rglru_scan_backward"] = row
+                la, lb = (t.detach().requires_grad_(True) for t in (a, b))
+                lh = ops.rglru_scan(la, lb)
+                auto = torch.autograd.grad(lh, (la, lb), dh)
+                mine = rg.rglru_scan_backward(a, lh.detach(), dh)
+                same = lh.grad_fn is not None and all(
+                    torch.equal(p, r) for p, r in zip(auto, mine))
+                print(f"  autograd through ops.rglru_scan on the card: "
+                      f"gradients equal to the backward kernel's={same}")
+                if not same:
+                    fail("ops.rglru_scan's gradient on the card is not the "
+                         "backward kernel's")
+                del la, lb, lh, auto, mine
+            del a, b, dh, h, got, want, x, y, z
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _train_report_line(rep):
+    """The report's policy fields, for printing."""
+    keys = ("mode", "effective_mode", "T_save", "save_interval",
+            "expected_pls", "measured_pls", "n_failures", "bytes_written",
+            "tracker_backend", "hash_backend", "sharded_save")
+    out = {k: rep[k] for k in keys}
+    out["overheads"] = rep["overheads"]
+    for k in ("delta_rows_skipped", "delta_bytes_skipped"):
+        if k in rep:
+            out[k] = rep[k]
+    return json.dumps(out)
+
+
+def phase_training(dev, kernels, cfg):
+    """LM training with CPR over the token rows (phase 7): (a) the main
+    path at full width in three modes, (b) one pattern period's loss and
+    gradients at full width, card against CPU, (c) the reduced config's
+    training run, card against CPU."""
+    import dataclasses
+
+    from repro_torch.launch.train import train
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves, tree_map, unflatten
+    kinds = cfg.layer_kinds
+    per_step = {"flash_attention": sum(k != "rglru" for k in kinds),
+                "rglru_scan": sum(k == "rglru" for k in kinds)}
+    per_step["flash_attention_backward"] = per_step["flash_attention"]
+    per_step["rglru_scan_backward"] = per_step["rglru_scan"]
+    uses = {"cpr-mfu": ("tracker_select", "row_hash"),
+            "cpr-ssu": ("ssu_dedupe_evict",)}
+    totals = {name: 0 for name in kernels.LAUNCHES}
+    batch, seq = TRAIN_SHAPE
+    for mode, store in (("full", {}), ("cpr-ssu", {}), ("cpr-mfu", FLEET)):
+        t0 = time.perf_counter()
+        zero = []
+
+        def check_grads(i, grads):
+            if i == 1:    # after step 0: every leaf must have a gradient
+                zero.extend(n for n, g in enumerate(leaves(grads))
+                            if not bool((g != 0).any()))
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        # (the trained parameters are dropped at once: 10.6 GB)
+        hist = train(cfg, steps=TRAIN_STEPS, batch=batch, seq=seq,
+                     mode=mode, n_failures=2, fail_fraction=0.25,
+                     tracker_backend="kernel", log_every=1, device=dev,
+                     on_step=check_grads, **store)[1]
+        counts = dict(kernels.LAUNCHES)
+        for name, n in counts.items():
+            totals[name] += n
+        rep = hist["report"]
+        losses = [l for _, l in hist["loss"]]
+        steady = statistics.median(hist["step_s"][2:]) * 1e3
+        where = "fleet (inproc, delta saves)" if store else "flat store"
+        print(f"train {cfg.name} {mode} on the {where}: batch {batch} x "
+              f"{seq} tokens, {TRAIN_STEPS} steps, steady_ms_per_step="
+              f"{steady:.1f} (median of steps 2..{TRAIN_STEPS - 1}; each: "
+              f"{', '.join(f'{t * 1e3:.1f}' for t in hist['step_s'])}) "
+              f"peak_memory_GB="
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} "
+              f"save_blocked_s={rep['overheads']['save_blocked_s']:.3f} "
+              f"wall_s={time.perf_counter() - t0:.1f}")
+        print(f"  losses: {', '.join(f'{l:.4f}' for l in losses)}")
+        print(f"  report: {_train_report_line(rep)}")
+        print(f"  launches: {json.dumps(counts)}")
+        for name, n in per_step.items():
+            if counts[name] != n * TRAIN_STEPS:
+                fail(f"train {mode}: {name} launched {counts[name]} times, "
+                     f"not {n} a step")
+        missing = [n for n in uses.get(mode, ()) if counts[n] == 0]
+        if missing:
+            fail(f"train {mode}: {missing} never launched")
+        if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+            fail(f"train {mode}: a loss is not finite")
+        if zero:
+            fail(f"train {mode}: gradient leaves {zero} are zero after "
+                 f"step 0 (a dropped gradient)")
+        if mode != "full" and not (
+                rep["effective_mode"] == mode and rep["measured_pls"] > 0
+                and any(e[0] == "failure" for e in hist["events"])):
+            fail(f"train {mode}: no partial-recovery restore happened")
+        if store and not (rep["sharded_save"]
+                          and rep["hash_backend"] == "kernel"):
+            fail(f"train {mode}: the run did not go through the fleet")
+        del hist
+    print(f"train: launches of the three runs {json.dumps(totals)}")
+    torch.cuda.empty_cache()
+
+    # (b) one pattern period at full width in f32: card against CPU
+    t0 = time.perf_counter()
+    one = dataclasses.replace(cfg, num_layers=len(cfg.block_pattern),
+                              dtype="float32")
+    cpu = T.init_model(one, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, one.vocab_size, (1, AGREE_SEQ)))
+    out = {}
+    for d in (dev, "cpu"):
+        params = cpu if d == "cpu" else tree_map(lambda t: t.to(dev), cpu)
+        live = [t.detach().requires_grad_(True) for t in leaves(params)]
+        loss, _ = T.lm_loss(unflatten(params, live), {"tokens": toks.to(d)},
+                            one)
+        loss.backward()
+        out[str(d)] = (loss.item(), [t.grad.cpu() for t in live])
+        del params, live, loss
+    (lg, gg), (lc, gc) = out[str(dev)], out["cpu"]
+    shares = [((a - b).abs().max() / b.abs().max()).item()
+              for a, b in zip(gg, gc)]
+    ok = abs(lg - lc) <= 1e-5 * abs(lc) and max(shares) <= GRAD_AGREE
+    print(f"gradients at full width ({one.name}, {one.num_layers} layers "
+          f"{one.block_pattern}, f32, (1, {AGREE_SEQ}) tokens): loss card "
+          f"{lg:.6f} cpu {lc:.6f} (tol 1e-5 relative); {len(gg)} leaves, "
+          f"largest |card - cpu| / max|cpu| {max(shares):.3e} (limit "
+          f"{GRAD_AGREE:g}; by leaf {', '.join(f'{x:.1e}' for x in shares)}) "
+          f"ok={ok} ({time.perf_counter() - t0:.1f} s)")
+    if not ok:
+        fail("full-width gradients on the card disagree with the CPU's")
+    del out, gg, gc, cpu
+    torch.cuda.empty_cache()
+
+    # (c) the reduced config trained on the card and on the CPU
+    t0 = time.perf_counter()
+    small = cfg.reduced()
+    init = T.init_model(small, torch.Generator().manual_seed(0), "cpu")
+    runs = {}
+    for d in (dev, "cpu"):
+        _, runs[str(d)] = train(small, steps=8, batch=4, seq=128,
+                                mode="cpr-mfu", n_failures=2,
+                                tracker_backend="kernel", log_every=1,
+                                device=d, params=init)
+    a, b = runs[str(dev)], runs["cpu"]
+    keys = ("measured_pls", "n_failures", "T_save", "effective_mode",
+            "expected_pls", "save_interval", "pls_by_shard", "bytes_written")
+    same = all(a["report"][k] == b["report"][k] for k in keys) and all(
+        a["report"]["overheads"][k] == b["report"]["overheads"][k]
+        for k in ("save", "load", "lost", "resched"))
+    gaps = [abs(x - y) / abs(y) for (_, x), (_, y) in
+            zip(a["loss"], b["loss"])]
+    gap = max(gaps)
+    ok = same and gaps[0] <= 1e-5 and gap <= TRAIN_AGREE
+    print(f"train {small.name} cpr-mfu, card vs CPU, same parameters: policy "
+          f"identical={same}; losses card "
+          f"{', '.join(f'{l:.5f}' for _, l in a['loss'])} cpu "
+          f"{', '.join(f'{l:.5f}' for _, l in b['loss'])}; relative gaps "
+          f"{', '.join(f'{g:.1e}' for g in gaps)} (step 0 limit 1e-5, "
+          f"every step {TRAIN_AGREE:g}) ok={ok} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if not ok:
+        fail("the reduced model's training on the card disagrees with the "
+             "CPU's")
+    return totals
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on a GPU")
@@ -1597,15 +2027,24 @@ def main() -> None:
 
     from repro_torch.configs import get_config
     rows.update(phase_lm_kernels(dev, ops, ref))
+    phase_done("2b")
+    rows.update(phase_lm_backward(dev, ops, ref))
+    phase_done("2c")
     from repro_torch.launch.profile_serve import ARCH
     lm = get_config(ARCH)
     params, lm_launches = phase_serving(dev, kernels, lm)
-    for name in ("flash_attention", "rglru_scan"):
-        launches[name] = lm_launches[name]
+    phase_done("3b")
     phase_lm_agreement(dev, params, lm, lm.reduced())
     del params
     torch.cuda.empty_cache()
     phase_done("4b")
+    train_launches = phase_training(dev, kernels, lm)
+    phase_done("7")
+    # launches on the main paths: the DLRM's (phase 3), serving's (3b) and
+    # training's (7 (a)), each counted from 0 around its run
+    for counts in (lm_launches, train_launches):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
 
     sources = {"embedding_bag": "embedding_bag.cu",
                "embedding_bag_backward": "embedding_bag.cu",
@@ -1613,14 +2052,18 @@ def main() -> None:
                "ssu_dedupe_evict": "ssu_dedupe.cu",
                "row_hash": "row_hash.cu",
                "flash_attention": "flash_attention_bf16.cu",
-               "rglru_scan": "rglru_scan.cu"}
+               "flash_attention_backward": "flash_attention_backward.cu",
+               "rglru_scan": "rglru_scan.cu",
+               "rglru_scan_backward": "rglru_scan_backward.cu"}
     replaces = {"embedding_bag": "src/repro/kernels/embedding_bag.py:44",
                 "embedding_bag_backward": "src/repro/models/dlrm.py:82",
                 "tracker_select": "src/repro/kernels/tracker_select.py:112",
                 "ssu_dedupe_evict": "src/repro/kernels/ssu_dedupe.py:59",
                 "row_hash": "src/repro/kernels/row_hash.py:71",
                 "flash_attention": "src/repro/kernels/flash_attention.py:90",
-                "rglru_scan": "src/repro/kernels/rglru_scan.py:53"}
+                "flash_attention_backward": "src/repro/models/layers.py:221",
+                "rglru_scan": "src/repro/kernels/rglru_scan.py:53",
+                "rglru_scan_backward": "src/repro/models/rglru.py:64"}
     rows["row_hash"]["harness_launches"] = harness_hashes
     line = [{"name": name, "route": "cuda",
              "source": f"src/repro_torch/csrc/{sources[name]}",

@@ -31,7 +31,7 @@ from repro_torch.core.sharded_checkpoint import load_latest_auto
 from repro_torch.metrics.classification import log_loss, roc_auc
 from repro_torch.models import dlrm as D
 from repro_torch.optim.optimizers import apply_updates, get_optimizer
-from repro_torch.tree import leaves, tree_map, unflatten
+from repro_torch.tree import leaves, own_copy, tree_map, unflatten
 
 
 @dataclass
@@ -49,13 +49,6 @@ class EmulationResult:
                 f"ovh={100 * o['fraction']:.2f}% "
                 f"(save={o['save']:.2f}h load={o['load']:.2f}h "
                 f"lost={o['lost']:.2f}h res={o['resched']:.2f}h)")
-
-
-def _own(a, device) -> torch.Tensor:
-    """A private copy of a tensor or array on ``device``."""
-    if isinstance(a, torch.Tensor):
-        return a.detach().to(device, copy=True)
-    return torch.tensor(np.asarray(a), device=device)
 
 
 def _trainer(params):
@@ -91,7 +84,7 @@ class Emulator:
         if self.init_params is None:
             gen = torch.Generator(device=self.device).manual_seed(self.seed)
             return D.init_dlrm(self.cfg, gen, self.device)
-        return tree_map(lambda a: _own(a, self.device), self.init_params)
+        return tree_map(lambda a: own_copy(a, self.device), self.init_params)
 
     def _build_step(self):
         cfg, mgr = self.cfg, self.mgr

@@ -1,6 +1,6 @@
-"""Synthetic Criteo-like click log (a verbatim numpy copy of
-``repro.data.synthetic.ClickLogDataset``: the same seed yields
-byte-identical batches).
+"""Synthetic Criteo-like click log and LM token stream (verbatim numpy
+copies of ``repro.data.synthetic.ClickLogDataset`` and ``TokenDataset``:
+the same seed yields byte-identical batches).
 
 13 continuous features, 26 categorical features with Zipf-distributed ids
 (the power-law access skew that makes CPR-MFU/SSU work, paper Fig. 6), and
@@ -80,3 +80,27 @@ class ClickLogDataset:
     def eval_split(self, frac=0.1):
         n = int(self.num_samples * (1 - frac))
         return (0, n), (n, self.num_samples)
+
+
+class TokenDataset:
+    """Zipf-distributed LM token stream with local n-gram structure."""
+
+    def __init__(self, vocab_size, num_tokens=2_000_000, zipf_a=1.1, seed=0):
+        rng = np.random.default_rng(seed)
+        base = rng.zipf(zipf_a, size=num_tokens) - 1
+        self.tokens = (base % vocab_size).astype(np.int32)
+        # inject learnable bigram structure: even positions predict next
+        n2 = len(self.tokens) // 2
+        self.tokens[1: 2 * n2: 2] = (self.tokens[0: 2 * n2: 2] * 7 + 13) \
+            % vocab_size
+        self.vocab_size = vocab_size
+
+    def batches(self, batch_size, seq_len, loop=False):
+        n = len(self.tokens) // (batch_size * seq_len)
+        view = self.tokens[: n * batch_size * seq_len].reshape(
+            n, batch_size, seq_len)
+        while True:
+            for b in view:
+                yield {"tokens": b}
+            if not loop:
+                break

@@ -15,7 +15,8 @@ import torch
 
 LAUNCHES = {"embedding_bag": 0, "embedding_bag_backward": 0,
             "tracker_select": 0, "ssu_dedupe_evict": 0, "row_hash": 0,
-            "flash_attention": 0, "rglru_scan": 0}
+            "flash_attention": 0, "flash_attention_backward": 0,
+            "rglru_scan": 0, "rglru_scan_backward": 0}
 
 
 def reset_launches() -> None:

@@ -3,7 +3,10 @@
 A CUDA tensor goes to the hand-written kernel, a CPU tensor to its plain
 version in ``ref`` (the role ``repro.kernels.ops._interpret`` plays in
 the reference).  A kernel that cannot build or launch raises; nothing
-falls back.
+falls back.  ``embedding_bags``, ``flash_attention`` and ``rglru_scan``
+are differentiable: their backwards pick the route the same way (the
+backward kernels on the card, the plain backwards in ``ref`` on the
+CPU).
 """
 from __future__ import annotations
 
@@ -31,24 +34,71 @@ def embedding_bag(table, idx):
     return embedding_bags([table], idx[:, None])[:, 0]
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Attention over the kernel layout (B, H, S, hd); saves q, k, v and
+    the output for the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        ctx.mask = (causal, window, softcap)
+        if on_card(q, k, v):
+            out = _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                      softcap=softcap)
+        else:
+            out = ref.flash_attention(q, k, v, causal=causal, window=window,
+                                      softcap=softcap)
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        if on_card(q, k, v, out, dout):
+            if not _fa._aligned(dout):
+                # the model's layout (B, S, H, hd), dense
+                dout = dout.transpose(1, 2).contiguous().transpose(1, 2)
+            grads = _fa.flash_attention_backward(q, k, v, out, dout,
+                                                 *ctx.mask)
+        else:
+            grads = ref.flash_attention_backward(q, k, v, out, dout,
+                                                 *ctx.mask)
+        return (*grads, None, None, None)
+
+
 def flash_attention(q, k, v, causal=True, window=0, softcap=0.0):
     """Layer layout: q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd) ->
-    (B, Sq, Hq, hd).  The kernel takes the (B, H, S, hd) views in place."""
+    (B, Sq, Hq, hd), differentiable in q, k and v.  The kernels take the
+    (B, H, S, hd) views in place."""
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    if on_card(q, k, v):
-        out = _fa.flash_attention(qt, kt, vt, causal=causal, window=window,
-                                  softcap=softcap)
-    else:
-        out = ref.flash_attention(qt, kt, vt, causal=causal, window=window,
-                                  softcap=softcap)
-    return out.transpose(1, 2)
+    return _FlashAttention.apply(qt, kt, vt, causal, window,
+                                 softcap).transpose(1, 2)
+
+
+class _RGLRUScan(torch.autograd.Function):
+    """The scan; saves a and the output h for the backward."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        if on_card(a, b):
+            a, b = a.contiguous(), b.contiguous()
+            h = _rg.rglru_scan(a, b)
+        else:
+            h = ref.rglru_scan(a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h = ctx.saved_tensors
+        if on_card(a, h, dh):
+            return _rg.rglru_scan_backward(a, h, dh.contiguous())
+        return ref.rglru_scan_backward(a, h, dh)
 
 
 def rglru_scan(a, b):
-    """h_t = a_t * h_{t-1} + b_t over axis 1 of (B, S, w), h_0 = 0."""
-    if on_card(a, b):
-        return _rg.rglru_scan(a.contiguous(), b.contiguous())
-    return ref.rglru_scan(a, b)
+    """h_t = a_t * h_{t-1} + b_t over axis 1 of (B, S, w), h_0 = 0,
+    differentiable in a and b."""
+    return _RGLRUScan.apply(a, b)
 
 
 def tracker_select(counts, indices, k: int, seg_size: int = 512):

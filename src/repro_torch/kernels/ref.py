@@ -2,8 +2,10 @@
 
 They mirror ``repro.kernels.ref`` (``embedding_bag``, ``tracker_select``,
 ``ssu_dedupe_evict``, ``row_hash``, ``flash_attention``, ``rglru_scan``)
-and add the embedding-bag backward, which the reference leaves to XLA,
-and the multi-table ``embedding_bags`` the fused kernels compute.
+and add the backwards the reference leaves to XLA (the embedding bag's,
+attention's and the scan's, each with its gradient written out, not
+taken by autograd) and the multi-table ``embedding_bags`` the fused
+kernels compute.
 The CPU path runs them; on the card they are only the yardstick
 ``chip_smoke.py`` holds each kernel against.
 """
@@ -55,14 +57,23 @@ def flash_attention(q, k, v, causal=True, window=0, softcap=0.0):
     The (B, Hq, Sq, Skv) f32 scores are materialized after K/V are
     repeated to every query head (kv head = h // g); queries are
     right-aligned to the KV tail."""
+    p, _ = _attention_probs(q, k, causal, window, softcap)
+    vq = v.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    return torch.einsum("bhst,bhtd->bhsd", p, vq.float()).to(q.dtype)
+
+
+def _attention_probs(q, k, causal, window, softcap):
+    """The f32 probabilities of ``flash_attention`` (B, Hq, Sq, Skv) and
+    the softcap's tanh (None without one), K repeated to the query
+    heads."""
     B, Hq, Sq, hd = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
-    g = Hq // Hkv
-    kq = k.repeat_interleave(g, dim=1)
-    vq = v.repeat_interleave(g, dim=1)
+    kq = k.repeat_interleave(Hq // Hkv, dim=1)
     s = torch.einsum("bhsd,bhtd->bhst", q.float(), kq.float()) / math.sqrt(hd)
+    t = None
     if softcap:
-        s = torch.tanh(s / softcap) * softcap
+        t = torch.tanh(s / softcap)
+        s = t * softcap
     i = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
     j = torch.arange(Skv, device=q.device)[None, :]
     mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
@@ -71,8 +82,43 @@ def flash_attention(q, k, v, causal=True, window=0, softcap=0.0):
     if window:
         mask &= (i - j) < window
     s = torch.where(mask[None, None], s, -1e30)
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhst,bhtd->bhsd", p, vq.float()).to(q.dtype)
+    return torch.softmax(s, dim=-1), t
+
+
+def flash_attention_backward(q, k, v, out, dout, causal=True, window=0,
+                             softcap=0.0):
+    """Gradients (dq, dk, dv) of ``flash_attention`` in the inputs' dtypes,
+    from its output ``out`` and the output's gradient ``dout`` (both
+    (B, Hq, Sq, hd)), all in f32:
+
+        P = softmax of the masked (softcapped) scores, as the forward
+        dV = P^T dO,  dP = dO V^T,  D = rowsum(dO * O)
+        dS = P * (dP - D)  [* (1 - tanh^2(s / cap)) with a softcap]
+        dQ = dS K / sqrt(hd),  dK = dS^T Q / sqrt(hd)
+
+    dK and dV sum over the g query heads of each KV head."""
+    B, Hq, Sq, hd = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    p, t = _attention_probs(q, k, causal, window, softcap)
+    do = dout.float()
+    kq = k.float().repeat_interleave(g, dim=1)
+    vq = v.float().repeat_interleave(g, dim=1)
+    dv = torch.einsum("bhst,bhsd->bhtd", p, do)
+    dp = torch.einsum("bhsd,bhtd->bhst", do, vq)
+    delta = (do * out.float()).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    scale = 1.0 / math.sqrt(hd)
+    dq = torch.einsum("bhst,bhtd->bhsd", ds, kq) * scale
+    dk = torch.einsum("bhst,bhsd->bhtd", ds, q.float()) * scale
+
+    def per_kv_head(x):
+        return x.reshape(B, Hkv, g, Skv, hd).sum(2)
+
+    return (dq.to(q.dtype), per_kv_head(dk).to(k.dtype),
+            per_kv_head(dv).to(v.dtype))
 
 
 def rglru_scan(a, b, h0=None):
@@ -87,6 +133,27 @@ def rglru_scan(a, b, h0=None):
         h = af[:, t] * h + bf[:, t]
         hs[:, t] = h
     return hs.to(a.dtype)
+
+
+def rglru_scan_backward(a, h, dh):
+    """Gradients (da, db) of ``rglru_scan`` (h_0 = 0) from its output ``h``
+    and the output's gradient ``dh``, in a's dtype: one reverse f32 chain
+
+        g_t = dh_t + a_{t+1} * g_{t+1}  (g_{S+1} = 0),  db_t = g_t,
+        da_t = g_t * h_{t-1}  (h_0 = 0),
+
+    the product rounded before the sum, as the backward kernel computes
+    it."""
+    B, S, w = a.shape
+    af, hf, dhf = a.float(), h.float(), dh.float()
+    g = torch.zeros((B, w), dtype=torch.float32, device=a.device)
+    da = torch.empty((B, S, w), dtype=torch.float32, device=a.device)
+    db = torch.empty((B, S, w), dtype=torch.float32, device=a.device)
+    for t in range(S - 1, -1, -1):
+        g = dhf[:, t] if t == S - 1 else af[:, t + 1] * g + dhf[:, t]
+        db[:, t] = g
+        da[:, t] = g * hf[:, t - 1] if t else 0.0
+    return da.to(a.dtype), db.to(a.dtype)
 
 
 def tracker_select(counts, indices, k: int, seg_size: int = 512):

@@ -13,7 +13,8 @@ a step at any context past the window.  Prints for each the host ms, the
 device busy ms and share, and the device time by kernel name (the top
 15, and the port's own kernels wherever they rank).  Then it times
 ``PREFILL_REPS`` unprofiled prefills (host clock around each, ending in a
-synchronize) and prints their median.  Needs a GPU.
+synchronize) and prints their median.  Needs a GPU.  Nothing is recorded
+for autograd.
 
 The constants below are the workload of ``chip_smoke.py`` phase 3b,
 which imports them.
@@ -85,6 +86,7 @@ def _profiled(fn, n, dev):
     return prof, wall
 
 
+@torch.no_grad()
 def main() -> None:
     dev = resolve_device("cuda")
     cfg = get_config(ARCH)

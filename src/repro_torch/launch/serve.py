@@ -32,11 +32,13 @@ def make_requests(n, max_prompt, vocab, seed=0):
             for _ in range(n)]
 
 
+@torch.no_grad()
 def serve(cfg, requests, batch=8, gen=32, greedy=True, seed=0, params=None,
           device=None):
     """Returns (completions, stats).  ``params=None`` draws the port's own
     ``init_model`` from a generator seeded with ``seed``; sampling
-    (``greedy=False``) uses a generator seeded the same way."""
+    (``greedy=False``) uses a generator seeded the same way.  Nothing is
+    recorded for autograd."""
     device = resolve_device(device)
     if params is None:
         params = T.init_model(cfg, torch.Generator(device=device)

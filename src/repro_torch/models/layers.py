@@ -3,8 +3,8 @@
 The port of ``repro.models.layers``: ``init_*`` return dicts of tensors
 with the reference's names and shapes, ``apply`` functions are plain.
 Full-sequence attention always goes through ``kernels.ops.flash_attention``
-(the CUDA kernel for CUDA tensors, its plain version for CPU ones), so
-there is no ``use_flash`` switch; the decode step attends over its cache
+(the CUDA kernels, forward and backward, for CUDA tensors; the plain
+versions for CPU ones), so there is no ``use_flash`` switch; the decode step attends over its cache
 with plain tensor code, as the reference does.
 
 Differences from the reference, each raised rather than run: M-RoPE

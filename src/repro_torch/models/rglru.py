@@ -10,10 +10,12 @@ RG-LRU recurrence (per channel):
 
 The port of ``repro.models.rglru``.  The train / prefill path runs the
 recurrence through ``kernels.ops.rglru_scan`` (the CUDA kernel for CUDA
-tensors, its plain version for CPU ones), so there is no ``use_kernel``
-switch; the reference computes the same recurrence with
-``jax.lax.associative_scan`` unless asked for its Pallas kernel.  Decode
-is a single fused step.
+tensors, its plain version for CPU ones), forward and backward: its
+gradient is the backward kernel's on the card and the plain backward's on
+the CPU.  So there is no ``use_kernel`` switch; the reference computes the
+same recurrence with ``jax.lax.associative_scan`` unless asked for its
+forward-only Pallas kernel, and trains through the former.  Decode is a
+single fused step.
 """
 from __future__ import annotations
 

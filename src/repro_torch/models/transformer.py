@@ -1,5 +1,5 @@
 """Decoder LM assembled from the block zoo (the port of
-``repro.models.transformer``: prefill and decode).
+``repro.models.transformer``: prefill, decode and the training loss).
 
 Depth handling keeps the reference's parameter layout: the config's
 ``block_pattern`` (period P) tiles the depth; ``params["stages"]`` holds
@@ -11,17 +11,26 @@ stacked the same way; ``decode_step`` updates them in place.
 
 Entry points:
   * ``forward(params, batch, cfg)``            -> (logits, aux) for prefill
+  * ``lm_loss(params, batch, cfg, remat)``     -> (loss + aux, (loss, aux))
   * ``init_decode_state(cfg, batch, max_len)`` -> stacked caches
   * ``decode_step(params, state, tokens, pos, cfg)`` -> (logits, state)
 
-The MoE and xLSTM kinds, the audio and vision front ends, the losses and
-rematerialization come with later slices and raise here.
+``lm_loss`` is differentiable through every layer (the attention and
+scan kernels have backward kernels on the card).  Its cross-entropy runs
+in sequence chunks that are recomputed in the backward, and ``remat``
+recomputes each pattern repetition, grouped two-level for deep stacks,
+with ``torch.utils.checkpoint`` where the reference uses
+``jax.checkpoint``.
+
+The MoE and xLSTM kinds and the audio and vision front ends come with
+later slices and raise here.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MLSTM, MOE, RECURRENT,
@@ -114,11 +123,12 @@ def _layer(stage, r: int):
     return tree_map(lambda t: t[r], stage)
 
 
-def _layers(params, cfg: ModelConfig):
-    """(params, kind) of every layer in depth order."""
+def _layers(params, cfg: ModelConfig, stages: bool = True):
+    """(params, kind) of every layer in depth order (only the unstacked
+    tail's when ``stages`` is False)."""
     P = len(cfg.block_pattern)
     R = cfg.num_layers // P
-    for r in range(R):
+    for r in range(R if stages else 0):
         for j, kind in enumerate(cfg.block_pattern):
             yield _layer(params["stages"][j], r), kind
     for i, p in enumerate(params["rest"]):
@@ -172,12 +182,53 @@ def unembed(params, x, cfg: ModelConfig, normed: bool = False):
     return logits
 
 
-def forward_hidden(params, batch, cfg: ModelConfig):
+def _remat_groups(R: int) -> int:
+    """Pick G for two-level (sqrt-style) remat: carries saved = G + R/G
+    instead of R.  Returns 1 (single level) when R is small or prime."""
+    if R < 20:
+        return 1
+    best, best_cost = 1, R + 1
+    for g in range(2, R):
+        if R % g == 0 and g + R // g < best_cost:
+            best, best_cost = g, g + R // g
+    return best
+
+
+def _remat_stages(params, x, cfg: ModelConfig, positions):
+    """The R pattern repetitions, each recomputed in the backward (only
+    its input is kept); when ``_remat_groups(R) > 1`` they also run in G
+    recomputed groups, so that only the groups' inputs persist (the
+    reference's two-level scan)."""
+    R = cfg.num_layers // len(cfg.block_pattern)
+
+    def rep(x, r):
+        for j, kind in enumerate(cfg.block_pattern):
+            x = apply_layer(_layer(params["stages"][j], r), x, cfg, kind,
+                            positions)
+        return x
+
+    def reps(x, lo, hi):
+        for r in range(lo, hi):
+            x = checkpoint(rep, x, r, use_reentrant=False)
+        return x
+
+    G = _remat_groups(R)
+    if G == 1:
+        return reps(x, 0, R)
+    K = R // G
+    for grp in range(G):
+        x = checkpoint(reps, x, grp * K, (grp + 1) * K, use_reentrant=False)
+    return x
+
+
+def forward_hidden(params, batch, cfg: ModelConfig, remat: bool = False):
     """Full-sequence forward up to the final norm'd hidden states -> (h,
     aux_loss).  The aux loss is the MoE router's, so 0 for every kind the
     port runs."""
     x, positions = embed_inputs(params, batch, cfg)
-    for p, kind in _layers(params, cfg):
+    if remat:
+        x = _remat_stages(params, x, cfg, positions)
+    for p, kind in _layers(params, cfg, stages=not remat):
         x = apply_layer(p, x, cfg, kind, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return L.apply_norm(params["final_norm"], x, cfg.norm_eps), aux
@@ -187,6 +238,56 @@ def forward(params, batch, cfg: ModelConfig):
     """Full-sequence forward -> (logits (B, S, V), aux_loss)."""
     h, aux = forward_hidden(params, batch, cfg)
     return unembed(params, h, cfg, normed=True), aux
+
+
+# --------------------------------------------------------------------------
+# losses
+# --------------------------------------------------------------------------
+def _ce_chunk(h_chunk, targets, mask, params, cfg: ModelConfig):
+    """Cross-entropy sum and token count of one sequence chunk; its logits
+    never leave the chunk."""
+    logits = unembed(params, h_chunk, cfg, normed=True)   # h already norm'd
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    correct = lf.gather(-1, targets.long()[..., None])[..., 0]
+    nll = (lse - correct) * mask
+    return nll.sum(), mask.sum()
+
+
+def chunked_ce(params, h, targets, mask, cfg: ModelConfig, chunk=1024):
+    """Sequence-chunked, rematerialized CE: the peak temporary is one
+    chunk's logits instead of the full (B, S, V); each chunk's forward is
+    recomputed in the backward."""
+    B, S, d = h.shape
+    c = min(chunk, S)
+    nc = S // c
+    rem = S - nc * c
+
+    def f(hc, tc, mc):
+        return checkpoint(_ce_chunk, hc, tc, mc, params, cfg,
+                          use_reentrant=False)
+
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(nc):
+        sl = slice(i * c, (i + 1) * c)
+        s, n = f(h[:, sl], targets[:, sl], mask[:, sl])
+        tot, cnt = tot + s, cnt + n
+    if rem:
+        s, n = f(h[:, nc * c:], targets[:, nc * c:], mask[:, nc * c:])
+        tot, cnt = tot + s, cnt + n
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def lm_loss(params, batch, cfg: ModelConfig, remat: bool = False):
+    """Next-token cross-entropy, sequence-chunked so the full (B, S, V)
+    logits never exist -> (loss + aux, (loss, aux))."""
+    h, aux = forward_hidden(params, batch, cfg, remat)
+    h = h[:, :-1]
+    targets = batch["tokens"][:, 1:]
+    mask = torch.ones(targets.shape, dtype=torch.float32, device=h.device)
+    loss = chunked_ce(params, h, targets, mask, cfg)
+    return loss + aux, (loss, aux)
 
 
 # --------------------------------------------------------------------------

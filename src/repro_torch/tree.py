@@ -61,3 +61,10 @@ def params_from_jax(tree, device=None) -> Any:
     device = resolve_device(device)
     return tree_map(lambda a: torch.tensor(np.asarray(a), device=device),
                     tree)
+
+
+def own_copy(a, device) -> torch.Tensor:
+    """A private copy of a tensor or array on ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device, copy=True)
+    return torch.tensor(np.asarray(a), device=device)

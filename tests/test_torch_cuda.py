@@ -18,7 +18,9 @@ with tied and signed-zero scores, a full reservoir that holds every
 candidate; ``rglru_scan`` at the prefill's width and rows of any
 alignment; for the LM path, head dims 32-256, MQA/GQA, windows,
 softcaps, Skv > Sq, ragged lengths, f32 and bf16, the bf16 kernel's tile
-edges, and the reduced models against the CPU.
+edges, the backward kernels of attention and the scan and the autograd
+path through them, and the reduced models' logits and gradients against
+the CPU.
 """
 import numpy as np
 import pytest
@@ -554,6 +556,84 @@ def test_flash_attention_bf16_tile_edges(card, B, Hq, Hkv, Sq, Skv, hd,
                                 window, softcap, torch.bfloat16, 1e-2, 4e-3)
 
 
+def assert_grad_close(got, want, rtol, atol):
+    """|got - want| <= rtol * |want| + atol * max |want|, elementwise."""
+    got, want = got.float(), want.float()
+    limit = rtol * want.abs() + atol * want.abs().max()
+    assert bool(((got - want).abs() <= limit).all()), \
+        float(((got - want).abs() / limit).max())
+
+
+# the backward's limits: f32 sums in another order; bf16 adds one rounding
+# of each gradient (2**-8 of the value, nearest) to that
+BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 5e-3)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,hd,causal,window,softcap",
+                         FLASH_CARD_CASES + [
+                             # a key tile (32) and a dkdv query tile (64)
+                             # edge, and the training path's MQA shape
+                             (1, 2, 1, 31, 33, 32, True, 0, 0.0),
+                             (1, 2, 2, 65, 97, 64, True, 32, 0.0),
+                             (2, 10, 1, 128, 128, 256, True, 2048, 0.0)])
+def test_flash_attention_backward_kernel(card, B, Hq, Hkv, Sq, Skv, hd,
+                                         causal, window, softcap, dtype):
+    """The backward kernel against the plain backward on the same q, k, v,
+    output and output gradient, one launch a call."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=card).manual_seed(Sq * 7 + Skv + hd)
+    q = torch.randn((B, Hq, Sq, hd), generator=g, device=card).to(dtype)
+    k = torch.randn((B, Hkv, Skv, hd), generator=g, device=card).to(dtype)
+    v = torch.randn((B, Hkv, Skv, hd), generator=g, device=card).to(dtype)
+    do = torch.randn((B, Hq, Sq, hd), generator=g, device=card).to(dtype)
+    out = ref.flash_attention(q, k, v, causal, window, softcap)
+    before = LAUNCHES["flash_attention_backward"]
+    got = fa.flash_attention_backward(q, k, v, out, do, causal, window,
+                                      softcap)
+    assert LAUNCHES["flash_attention_backward"] == before + 1
+    want = ref.flash_attention_backward(q, k, v, out, do, causal, window,
+                                        softcap)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == dtype
+        assert_grad_close(a, b, *BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_through_the_kernels_on_the_card(card, dtype):
+    """``ops.flash_attention`` and ``ops.rglru_scan`` on CUDA tensors give
+    gradients (no dropped ones) equal to the backward kernels' outputs."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rg
+    g = torch.Generator(device=card).manual_seed(11)
+    q, k, v = (torch.randn((2, 96, h, 64), generator=g, device=card)
+               .to(dtype).requires_grad_(True) for h in (4, 2, 2))
+    do = torch.randn((2, 96, 4, 64), generator=g, device=card).to(dtype)
+    before = dict(LAUNCHES)
+    out = ops.flash_attention(q, k, v, causal=True, window=40, softcap=0.0)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert LAUNCHES["flash_attention_backward"] == \
+        before["flash_attention_backward"] + 1
+    want = fa.flash_attention_backward(
+        *(x.detach().transpose(1, 2) for x in (q, k, v, out)),
+        do.transpose(1, 2).contiguous(), True, 40, 0.0)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b.transpose(1, 2))
+    a = torch.sigmoid(torch.randn((2, 70, 96), generator=g, device=card)
+                      ).to(dtype).requires_grad_(True)
+    b = torch.randn((2, 70, 96), generator=g, device=card).to(
+        dtype).requires_grad_(True)
+    dh = torch.randn((2, 70, 96), generator=g, device=card).to(dtype)
+    h = ops.rglru_scan(a, b)
+    before = LAUNCHES["rglru_scan_backward"]
+    got = torch.autograd.grad(h, (a, b), dh)
+    assert LAUNCHES["rglru_scan_backward"] == before + 1
+    want = rg.rglru_scan_backward(a.detach(), h.detach(), dh)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
 def test_flash_attention_kernel_refuses(card):
     from repro_torch.kernels import flash_attention as fa
     q = torch.zeros((1, 2, 8, 48), device=card)
@@ -607,6 +687,67 @@ def test_rglru_scan_kernel_unaligned_base(card, offset, dtype):
     assert a.is_contiguous() and a.data_ptr() % 16 != 0
     got = ops.rglru_scan(a, b)
     assert got.dtype == dtype and torch.equal(got, ref.rglru_scan(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,w", [(2, 128, 64), (1, 257, 130), (3, 64, 32),
+                                   (1, 1, 5), (1, 17, 33), (8, 512, 2560),
+                                   (2, 4096, 2560)])
+def test_rglru_scan_backward_kernel(card, B, S, w, dtype):
+    """Bit-exact against the plain backward: one reverse f32 chain a
+    channel, the product rounded before the sum; ragged S (groups of 16
+    steps) and w (blocks of 32 channels)."""
+    from repro_torch.kernels import rglru_scan as rg
+    g = torch.Generator(device=card).manual_seed(B * S + w + 1)
+    a = torch.sigmoid(torch.randn((B, S, w), generator=g, device=card)
+                      ).to(dtype)
+    h = torch.randn((B, S, w), generator=g, device=card).to(dtype)
+    dh = torch.randn((B, S, w), generator=g, device=card).to(dtype)
+    before = LAUNCHES["rglru_scan_backward"]
+    got = rg.rglru_scan_backward(a, h, dh)
+    assert LAUNCHES["rglru_scan_backward"] == before + 1
+    want = ref.rglru_scan_backward(a, h, dh)
+    assert all(x.dtype == dtype and torch.equal(x, y)
+               for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("arch,changes", [
+    ("recurrentgemma-2b", {}), ("gemma2-2b", {"num_kv_heads": 2})])
+def test_reduced_lm_loss_gradients_on_the_card_match_the_cpu(card, arch,
+                                                              changes):
+    """``lm_loss`` and every gradient leaf of the reduced model on the
+    card (the forward and backward kernels) against the CPU (the plain
+    versions, held against ``jax.grad`` by ``tests/test_torch_lm_grad.py``):
+    the loss within 1e-5 relative, each leaf within 1e-4 of its largest
+    entry."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves, tree_map, unflatten
+    cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
+    cpu = T.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 128)))
+    out = {}
+    for dev, params in (("cpu", cpu),
+                        (card, tree_map(lambda t: t.to(card), cpu))):
+        live = [t.detach().requires_grad_(True) for t in leaves(params)]
+        before = dict(LAUNCHES)
+        loss, _ = T.lm_loss(unflatten(params, live),
+                            {"tokens": toks.to(dev)}, cfg)
+        loss.backward()
+        out[str(dev)] = (loss.item(), [t.grad.cpu() for t in live])
+        if dev != "cpu":
+            kinds = cfg.layer_kinds
+            for name, n in (("flash_attention_backward",
+                             sum(k != "rglru" for k in kinds)),
+                            ("rglru_scan_backward",
+                             sum(k == "rglru" for k in kinds))):
+                assert LAUNCHES[name] - before[name] == n, name
+    (lc, gc), (lg, gg) = out["cpu"], out[str(card)]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for a, b in zip(gg, gc):
+        assert_grad_close(a, b, 0.0, 1e-4)
 
 
 @pytest.mark.parametrize("arch,changes", [

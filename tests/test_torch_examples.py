@@ -51,6 +51,21 @@ def test_torch_cpr_tradeoff_runs_on_the_cpu():
         ["0.02", "0.1", "0.2"]
 
 
+def test_torch_train_lm_with_cpr_runs_on_the_cpu(tmp_path):
+    ckpt = tmp_path / "ckpt"
+    r = _run([str(ROOT / "examples" / "torch_train_lm_with_cpr.py"),
+              "--device", "cpu", "--steps", "3", "--batch", "1", "--seq",
+              "32", "--checkpoint-dir", str(ckpt)])
+    assert r.returncode == 0, r.stderr
+    lines = r.stdout.splitlines()
+    assert lines[0] == "params ~= 81M"     # the reference example's count
+    assert re.fullmatch(r"mode=cpr-mfu effective=cpr-mfu pls=0\.\d{4} "
+                        r"bytes_written=\d+\.\dMiB", lines[-2])
+    assert re.fullmatch(r"loss trajectory: \['0:\d+\.\d{3}', "
+                        r"'2:\d+\.\d{3}'\]", lines[-1])
+    assert (ckpt / "CURRENT").exists()     # the checkpoints went there
+
+
 def test_harness_writes_rows_with_the_device(tmp_path):
     r = _run(["-m", "benchmarks_torch.run", "--device", "cpu", "--fast",
               "--only", "fig3,fig13"], cwd=tmp_path)

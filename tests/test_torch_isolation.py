@@ -42,6 +42,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
               "repro_torch.analysis.protocol.spec",
               "repro_torch.kernels.row_hash",
               "repro_torch.models.transformer", "repro_torch.launch.serve",
+              "repro_torch.launch.train", "repro_torch.data.synthetic",
               "repro_torch.kernels.flash_attention",
               "repro_torch.kernels.rglru_scan", "benchmarks_torch.run",
               "benchmarks_torch.fig7_overhead",
@@ -50,7 +51,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
               "benchmarks_torch.fig16_reshard", "benchmarks_torch.fig17_wire"):
         assert m in mods, m
     examples = [str(p) for p in EXAMPLES]
-    assert len(examples) == 2, examples
+    assert [p.name for p in EXAMPLES] == [
+        "torch_cpr_tradeoff.py", "torch_quickstart.py",
+        "torch_train_lm_with_cpr.py"], examples
     code = (
         "import importlib, importlib.util, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
