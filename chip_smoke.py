@@ -7,7 +7,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 1. The card (``nvidia-smi`` name and power limit) and the kernel build:
    every ``src/repro_torch/csrc/*.cu`` compiled by ``nvcc`` for sm_90a,
    each kernel's registers and spills, and the count of tensor-core
-   (HGMMA) instructions in the bf16 ``flash_attention``'s SASS (0 fails).
+   (HGMMA) instructions in the SASS of the bf16 ``flash_attention`` and
+   of its backward (0 fails).
 2. Each kernel against its plain PyTorch version at the shapes of the
    DLRM main path (largest Criteo-Kaggle table: N = 10,131,227, d = 16,
    B = 512; ``embedding_bag`` as one table and, the path's own call, over
@@ -129,16 +130,20 @@ freed first):
    4096, 256) global with softcap 50, and f32 (4, 8, 128, 64) over (4, 4,
    128, 64) with window 256 (the LM example's), within
    ``BWD_TOL`` (|kernel - plain| <= rtol |plain| + atol max|plain|; the
-   plain backward with its window one key tile (32) short must fall
-   outside it); the scan's at (8, 512, 2560) and (2, 4096, 2560), f32 and
-   bf16, under ``torch.equal``.  Each with its time (CUDA events, median
-   of 25), its kernels' own device time (profiler), the plain version's
-   time, its bound (2.5 times the forward's band flops at the dtype's
-   peak, or the bytes; the scan: a, h, dh read, da, db written) and the
-   backward of ``F.scaled_dot_product_attention`` with the band mask
-   (no softcap) or, for the scan, one ``torch.add`` over the same bytes.
-   Autograd through ``ops.flash_attention`` and ``ops.rglru_scan`` on the
-   card gives gradients equal to the backward kernels'.
+   plain backward with its window one key tile (64) short must fall
+   outside it), both with the forward's log-sum-exp handed over (the path
+   ``ops`` takes, and the one timed) and without it; two calls must give
+   equal gradients (``torch.equal``); the scan's at (8, 512, 2560) and
+   (2, 4096, 2560), f32 and bf16, under ``torch.equal``.  Each with its
+   time (CUDA events, median of 25), its kernels' own device time
+   (profiler), the plain version's time, its bound (2.5 times the
+   forward's band flops at the dtype's peak, or the bytes; the scan: a,
+   h, dh read, da, db written) and the backward of
+   ``F.scaled_dot_product_attention`` with the band mask (no softcap) or,
+   for the scan, one ``torch.add`` over the same bytes.  Autograd through
+   ``ops.flash_attention`` (the forward's log-sum-exp reaching the
+   backward) and ``ops.rglru_scan`` on the card gives gradients equal to
+   the backward kernels'.
 3b. The main path: RecurrentGemma-2B parameters (f32) drawn on the card,
    one prefill ``forward`` over (2, 4096) tokens in bf16, then ``serve()``
    answers 8 requests (prompts up to 64 tokens, batch 4, 32 generated).
@@ -241,7 +246,11 @@ BWD_FLASH_CASES = (
     ("gemma2-2b global", (1, 8, 4, 4096, 256), torch.bfloat16, 0, 50.0),
     ("lm-100m example", (4, 8, 4, 128, 64), torch.float32, 256, 0.0))
 BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 5e-3)}
-BWD_KEY_TILE = 32            # keys per tile of csrc/flash_attention_backward.cu
+BWD_KEY_TILE = 64            # keys per tile of csrc/flash_attention_backward_bf16.cu
+# the backward's kernels by dtype, as the profiler names them
+BWD_KERNELS = {torch.bfloat16: ("flash_bwd_prep", "flash_bwd_dkdv",
+                                "flash_bwd_dq"),
+               torch.float32: ("lse_delta", "dkdv", "dq_kernel")}
 BWD_SCAN_SHAPES = ((8, 512, 2560), (2, 4096, 2560))
 # phase 7: training RecurrentGemma-2B at full width (batch 8 x 512 tokens,
 # 2 failures of 25 % of 8 shards); steps a mode, and steps 2.. are steady
@@ -1675,11 +1684,12 @@ def phase_lm_backward(dev, ops, ref):
         q, k, v, do = (torch.randn((B, S, h, hd), generator=gen, device=dev)
                        .to(dtype) for h in (Hq, Hkv, Hkv, Hq))
         qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
-        out = fa.flash_attention(qt, kt, vt, True, window, cap)
+        out, lse = fa.flash_attention(qt, kt, vt, True, window, cap,
+                                      return_lse=True)
 
-        def kernel():
+        def kernel(lse=lse):
             return fa.flash_attention_backward(qt, kt, vt, out, dot, True,
-                                               window, cap)
+                                               window, cap, lse=lse)
 
         def plain(w=window):
             return ref.flash_attention_backward(qt, kt, vt, out, dot, True,
@@ -1688,6 +1698,10 @@ def phase_lm_backward(dev, ops, ref):
         got, want = kernel(), plain()
         rtol, atol = BWD_TOL[dtype]
         err, ratio = bwd_excess(got, want, rtol, atol)
+        # run to run: the same gradients bit for bit
+        same = all(torch.equal(a, b) for a, b in zip(got, kernel()))
+        # without the forward's LSE the call forms it itself
+        err_nolse, ratio_nolse = bwd_excess(kernel(None), want, rtol, atol)
         del got
         off = None
         if window and window < S:
@@ -1711,19 +1725,21 @@ def phase_lm_backward(dev, ops, ref):
             library = time_ms(lambda: torch.autograd.grad(
                 lo, (lq, lk, lv), dot, retain_graph=True))
             del lo, lq, lk, lv, band
-        own, _ = device_ms(kernel, ("lse_delta", "dkdv", "dq_kernel"))
+        own, _ = device_ms(kernel, BWD_KERNELS[dtype])
         row = dict(max_abs_err=err, ms=time_ms(kernel),
                    plain_ms=time_ms(plain, reps=5, warmup=1), bound_ms=t_b,
                    bound_by=by, library_ms=library)
-        ok = ratio <= 1.0
+        ok = ratio <= 1.0 and ratio_nolse <= 1.0
         print(f"flash_attention_backward {name}: q {tuple(q.shape)} k "
               f"{tuple(k.shape)} {str(dtype)[6:]} window={window} "
               f"softcap={cap} pairs={pairs} max_abs_err={err:.3e} limit "
               f"|err| <= {rtol:g}*|plain| + {atol:g}*max|plain| (largest "
-              f"share of it {ratio:.3f}) ok={ok} ms={row['ms']:.4f} (CUDA "
-              f"events) kernel device ms="
+              f"share of it {ratio:.3f}; without the forward's LSE "
+              f"{err_nolse:.3e}, {ratio_nolse:.3f}) ok={ok} two calls "
+              f"equal={same} ms={row['ms']:.4f} (CUDA events, the "
+              f"forward's LSE given) kernel device ms="
               f"{'not measured' if own is None else f'{own:.4f}'} "
-              f"(profiler, its three kernels) plain_ms="
+              f"(profiler, its kernels) plain_ms="
               f"{row['plain_ms']:.4f} bound_ms={t_b:.5f} ({by}) "
               f"library_ms={library} (the backward of "
               f"F.scaled_dot_product_attention, band mask)")
@@ -1736,6 +1752,9 @@ def phase_lm_backward(dev, ops, ref):
         if not ok:
             fail(f"flash_attention_backward {name} disagrees with its plain "
                  f"version")
+        if not same:
+            fail(f"flash_attention_backward {name} gives other gradients "
+                 f"in a second call")
         if name == BWD_FLASH_CASES[0][0]:
             rows["flash_attention_backward"] = row
             # autograd through ops on the card gives the kernel's gradients
@@ -1743,18 +1762,22 @@ def phase_lm_backward(dev, ops, ref):
             o = ops.flash_attention(*live, causal=True, window=window,
                                     softcap=cap)
             auto = torch.autograd.grad(o, live, do)
+            lt = [x.detach().transpose(1, 2) for x in live]
+            _, lse_live = fa.flash_attention(*lt, True, window, cap,
+                                             return_lse=True)
             mine = fa.flash_attention_backward(
-                *(x.transpose(1, 2) for x in (*live, o.detach())), dot, True,
-                window, cap)
+                *lt, o.detach().transpose(1, 2), dot, True, window, cap,
+                lse=lse_live)
             same = o.grad_fn is not None and all(
                 torch.equal(a, b.transpose(1, 2)) for a, b in zip(auto, mine))
             print(f"  autograd through ops.flash_attention on the card: "
-                  f"gradients equal to the backward kernel's={same}")
+                  f"gradients equal to the backward kernel's with the "
+                  f"forward's LSE={same}")
             if not same:
                 fail("ops.flash_attention's gradient on the card is not the "
                      "backward kernel's")
-            del live, o, auto, mine
-        del q, k, v, do, qt, kt, vt, dot, out
+            del live, o, auto, mine, lt, lse_live
+        del q, k, v, do, qt, kt, vt, dot, out, lse
         torch.cuda.empty_cache()
 
     for shape in BWD_SCAN_SHAPES:
@@ -1997,14 +2020,16 @@ def main() -> None:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {log.stem}: {line.strip()}")
-    lib = out_dir / "libflash_attention_bf16.so"
-    sass = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"),
-                           "-sass", str(lib)], capture_output=True,
-                          text=True, check=True).stdout
-    n_hgmma = sum("HGMMA" in line for line in sass.splitlines())
-    print(f"  {lib.name}: {n_hgmma} HGMMA (wgmma) instructions in its SASS")
-    if not n_hgmma:
-        fail("the bf16 flash_attention kernel has no tensor-core instructions")
+    for name in ("flash_attention_bf16", "flash_attention_backward_bf16"):
+        lib = out_dir / f"lib{name}.so"
+        sass = subprocess.run(
+            [str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass",
+             str(lib)], capture_output=True, text=True, check=True).stdout
+        n_hgmma = sum("HGMMA" in line for line in sass.splitlines())
+        print(f"  {lib.name}: {n_hgmma} HGMMA (wgmma) instructions in its "
+              f"SASS")
+        if not n_hgmma:
+            fail(f"the {name} kernels have no tensor-core instructions")
 
     def phase_done(name):
         print(f"phase {name} done at {time.perf_counter() - t_start:.1f} s")
@@ -2052,7 +2077,7 @@ def main() -> None:
                "ssu_dedupe_evict": "ssu_dedupe.cu",
                "row_hash": "row_hash.cu",
                "flash_attention": "flash_attention_bf16.cu",
-               "flash_attention_backward": "flash_attention_backward.cu",
+               "flash_attention_backward": "flash_attention_backward_bf16.cu",
                "rglru_scan": "rglru_scan.cu",
                "rglru_scan_backward": "rglru_scan_backward.cu"}
     replaces = {"embedding_bag": "src/repro/kernels/embedding_bag.py:44",

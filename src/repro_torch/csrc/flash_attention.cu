@@ -14,7 +14,8 @@
 // i + Skv - Sq, key j at j; causal keeps j <= pos(i), a window w keeps
 // pos(i) - j < w; masked scores take no part (p = 0); the output is
 // acc / max(l, 1e-30) cast to q's dtype.  Skv >= Sq, so every query row
-// sees at least one key.
+// sees at least one key.  Given an lse pointer, each row's log-sum-exp
+// m + log(max(l, 1e-30)) goes there (f32, (B, Hq, Sq)) for the backward.
 //
 // Design: one CTA per (query tile of 8 rows per warp, head, batch).  The
 // Pallas grid's sequential KV axis becomes a loop inside the CTA, which
@@ -97,9 +98,9 @@ constexpr int smem_bytes() {
 template <typename T, int HD, int WARPS>
 __global__ void __launch_bounds__(WARPS * 32)
     flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, Strides st,
-              int group, int Sq, int Skv, float scale, int causal,
-              int window, float softcap) {
+              const T* __restrict__ v, T* __restrict__ o,
+              float* __restrict__ lse, Strides st, int group, int Sq,
+              int Skv, float scale, int causal, int window, float softcap) {
   constexpr int kThreads = WARPS * 32;
   constexpr int kBQ = WARPS * kRows;
   constexpr int kLDK = HD + 4;    // K row pitch: 16-byte lane loads, no conflicts
@@ -234,6 +235,8 @@ __global__ void __launch_bounds__(WARPS * 32)
     const int row = q0 + r0 + i;
     if (row < Sq) {
       const float denom = fmaxf(l[i], 1e-30f);
+      if (lse != nullptr && lane == 0)
+        lse[((long long)b * gridDim.x + h) * Sq + row] = m[i] + logf(denom);
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
         store(op + row * st.os + lane + 32 * c, acc[i][c] / denom);
@@ -243,7 +246,7 @@ __global__ void __launch_bounds__(WARPS * 32)
 }
 
 template <typename T, int HD, int WARPS>
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const Strides& st, int B, int Hq, int group, int Sq, int Skv,
            float scale, int causal, int window, float softcap,
            cudaStream_t s) {
@@ -256,31 +259,32 @@ int launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(Hq, (Sq + kBQ - 1) / kBQ, B);
   kern<<<grid, WARPS * 32, kSmem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), st, group, Sq, Skv, scale,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, st, group, Sq, Skv,
+      scale,
       causal, window, softcap);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
-             const Strides& st, int B, int Hq, int group, int Sq, int Skv,
-             float scale, int causal, int window, float softcap,
-             cudaStream_t s) {
+             float* lse, const Strides& st, int B, int Hq, int group,
+             int Sq, int Skv, float scale, int causal, int window,
+             float softcap, cudaStream_t s) {
   // 8 warps (64 query rows) per CTA; hd = 256 takes 4 so that two CTAs
   // (2 x 100.5 KB of shared memory) fit on one SM
   switch (hd) {
     case 32:
-      return launch<T, 32, 8>(q, k, v, o, st, B, Hq, group, Sq, Skv, scale,
-                              causal, window, softcap, s);
+      return launch<T, 32, 8>(q, k, v, o, lse, st, B, Hq, group, Sq, Skv,
+                              scale, causal, window, softcap, s);
     case 64:
-      return launch<T, 64, 8>(q, k, v, o, st, B, Hq, group, Sq, Skv, scale,
-                              causal, window, softcap, s);
+      return launch<T, 64, 8>(q, k, v, o, lse, st, B, Hq, group, Sq, Skv,
+                              scale, causal, window, softcap, s);
     case 128:
-      return launch<T, 128, 8>(q, k, v, o, st, B, Hq, group, Sq, Skv, scale,
-                               causal, window, softcap, s);
+      return launch<T, 128, 8>(q, k, v, o, lse, st, B, Hq, group, Sq, Skv,
+                               scale, causal, window, softcap, s);
     case 256:
-      return launch<T, 256, 4>(q, k, v, o, st, B, Hq, group, Sq, Skv, scale,
-                               causal, window, softcap, s);
+      return launch<T, 256, 4>(q, k, v, o, lse, st, B, Hq, group, Sq, Skv,
+                               scale, causal, window, softcap, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -293,11 +297,11 @@ extern "C" {
 // q (B, Hq, Sq, hd), k/v (B, Hkv, Skv, hd), o like q, all f32, each
 // addressed by the 12 element strides in `strides` (q, k, v, o; batch,
 // head, seq); hd in {32, 64, 128, 256} is contiguous; every pointer and
-// stride is a multiple of 16 bytes.  Returns a cudaError_t code (0 on
-// success).
+// stride is a multiple of 16 bytes.  lse: NULL, or f32 (B, Hq, Sq) for
+// each row's log-sum-exp.  Returns a cudaError_t code (0 on success).
 int flash_attention_fwd(const void* q, const void* k, const void* v,
-                        void* o, const long long* strides, int B, int Hq,
-                        int Hkv, int Sq, int Skv, int hd, float scale,
+                        void* o, void* lse, const long long* strides, int B,
+                        int Hq, int Hkv, int Sq, int Skv, int hd, float scale,
                         int causal, int window, float softcap,
                         void* stream) {
   if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
@@ -307,8 +311,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                    x[6], x[7], x[8], x[9], x[10], x[11]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int group = Hq / Hkv;
-  return dispatch<float>(hd, q, k, v, o, st, B, Hq, group, Sq, Skv, scale,
-                         causal, window, softcap, s);
+  return dispatch<float>(hd, q, k, v, o, static_cast<float*>(lse), st, B, Hq,
+                         group, Sq, Skv, scale, causal, window, softcap, s);
 }
 
 }  // extern "C"

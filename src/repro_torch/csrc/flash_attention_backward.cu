@@ -1,7 +1,9 @@
-// Flash attention backward for Hopper (sm_90a): dQ, dK and dV of the
-// forward of flash_attention.cu / flash_attention_bf16.cu (causal and
-// sliding-window masks, the gemma2 logit softcap, GQA/MQA, queries
-// right-aligned to the KV tail), f32 or bf16 inputs, f32 arithmetic.
+// Flash attention backward for Hopper (sm_90a), f32: dQ, dK and dV of the
+// forward of flash_attention.cu (causal and sliding-window masks, the
+// gemma2 logit softcap, GQA/MQA, queries right-aligned to the KV tail),
+// f32 FMAs on the CUDA cores, so every product stays exact in f32 (TF32
+// would keep 10 bits).  bf16 inputs go to the tensor-core kernels of
+// flash_attention_backward_bf16.cu.
 //
 // Replaces: the gradient XLA derives for the reference's jnp attention
 // (src/repro/models/layers.py, attention_forward with use_flash=False,
@@ -15,21 +17,20 @@
 //     dV = P^T dO,  dP = dO V^T,  D = rowsum(dO * O),
 //     dS = P * (dP - D)  [* (1 - tanh^2(s / cap))],
 //     dQ = dS K / sqrt(hd),  dK = dS^T Q / sqrt(hd),
-// dK and dV summed over the g query heads that share a KV head; outputs
-// in the inputs' dtype.  bf16 inputs are read and widened to f32; every
-// product and sum is an f32 FMA on the CUDA cores.
+// dK and dV summed over the g query heads that share a KV head; every
+// product and sum is an f32 FMA.
 //
 // Bound on this card: operations.  The band's backward is 2.5 times the
 // forward's 4 * hd flops a (query, key) pair (dS needs Q.K^T and dO.V^T
 // again, then dV, dK and dQ); at the training shape (8, 10, 512, 256)
-// over one KV head, causal, 26.9 GFLOP: 0.027 ms at the bf16 tensor-core
-// peak, 0.40 ms at the f32 FMA peak this kernel runs on.
+// over one KV head, causal, 26.9 GFLOP: 0.40 ms at the f32 FMA peak.
 //
 // Design: three kernels in one call, no atomics, deterministic.
 //   (a) lse_delta: one CTA per (query tile, head, batch), laid out as the
 //       forward kernel (a warp holds 8 query rows, a lane one key of a
 //       32-key tile); it recomputes each row's log-sum-exp over the band
-//       only and forms D = rowsum(dO * O).  Both go to an f32 scratch.
+//       only (unless the caller hands it the forward's) and forms
+//       D = rowsum(dO * O).  Both go to an f32 scratch.
 //   (b) dkdv: one CTA per (key tile of 32, KV head, batch), 8 warps.  The
 //       tile's K and V stay in shared memory; the CTA walks every query
 //       tile the band sends to these keys, for each of the g query heads:
@@ -43,7 +44,6 @@
 // Q is pre-scaled by 1 / sqrt(hd) as it is loaded, so dK needs no scale
 // and dQ takes it once at the end.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -68,62 +68,25 @@ enum { Q = 0, K = 3, V = 6, O = 9, DO = 12, DQ = 15, DK = 18, DV = 21 };
 struct Shape {
   int Hq, group, Sq, Skv, causal, window;
   float scale, softcap;
+  int lse_given;     // the caller's lse holds the forward's: (a) forms D only
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// One 16-byte load as 4 f32 or 8 widened bf16 values.
-__device__ __forceinline__ void unpack(const uint4& w, float* out, float) {
-  out[0] = __uint_as_float(w.x);
-  out[1] = __uint_as_float(w.y);
-  out[2] = __uint_as_float(w.z);
-  out[3] = __uint_as_float(w.w);
-}
-__device__ __forceinline__ void unpack(const uint4& w, float* out,
-                                       __nv_bfloat16) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(h[j]);
-    out[2 * j] = f.x;
-    out[2 * j + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-// rows x HD elements (row stride `stride`) -> shared f32 [rows][LD], each
-// times `mul`; rows at or past `valid` are zero-filled.  16-byte loads.
-template <typename T, int HD, int LD, int THREADS>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+// rows x HD f32 (row stride `stride`) -> shared [rows][LD], each times
+// `mul`; rows at or past `valid` are zero-filled.  16-byte loads.
+template <int HD, int LD, int THREADS>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           long long stride, int rows,
                                           int valid, float mul) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = HD / kVec;
+  constexpr int kPerRow = HD / 4;
   for (int idx = threadIdx.x; idx < rows * kPerRow; idx += THREADS) {
     const int r = idx / kPerRow;
-    const int c = (idx % kPerRow) * kVec;
-    float vals[kVec];
+    const int c = (idx % kPerRow) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r < valid) {
-      unpack(__ldg(reinterpret_cast<const uint4*>(src + r * stride + c)),
-             vals, T());
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) vals[j] *= mul;
-    } else {
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) vals[j] = 0.f;
+      val = __ldg(reinterpret_cast<const float4*>(src + r * stride + c));
+      val = make_float4(val.x * mul, val.y * mul, val.z * mul, val.w * mul);
     }
-    float4* d = reinterpret_cast<float4*>(dst + r * LD + c);
-#pragma unroll
-    for (int j = 0; j < kVec / 4; ++j) {
-      d[j] = make_float4(vals[4 * j], vals[4 * j + 1], vals[4 * j + 2],
-                         vals[4 * j + 3]);
-    }
+    *reinterpret_cast<float4*>(dst + r * LD + c) = val;
   }
 }
 
@@ -219,12 +182,13 @@ __device__ __forceinline__ void key_band(const Shape& sh, int q0, int rows,
 }
 
 // ---------------------------------------------------------------------
-// (a) per query row: lse over the band and D = rowsum(dO * O)
+// (a) per query row: D = rowsum(dO * O) and, unless given, lse over the
+// band
 // ---------------------------------------------------------------------
-template <typename T, int HD, int WARPS>
+template <int HD, int WARPS>
 __global__ void __launch_bounds__(WARPS * 32)
-    lse_delta(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ o, const T* __restrict__ dout,
+    lse_delta(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ o, const float* __restrict__ dout,
               float* __restrict__ lse, float* __restrict__ delta,
               Strides st, Shape sh) {
   constexpr int kThreads = WARPS * 32;
@@ -242,27 +206,28 @@ __global__ void __launch_bounds__(WARPS * 32)
   const int offset = sh.Skv - sh.Sq;
   const long long row_base = ((long long)b * sh.Hq + h) * sh.Sq;
 
-  load_tile<T, HD, HD, kThreads>(Qs, q + b * x[Q] + h * x[Q + 1] + q0 * x[Q + 2],
-                                 x[Q + 2], kBQ, min(kBQ, sh.Sq - q0), sh.scale);
   // D for the warp's rows, each a warp reduction over HD
 #pragma unroll 1
   for (int i = 0; i < kRows; ++i) {
     const int row = q0 + r0 + i;
     if (row >= sh.Sq) break;
-    const T* orow = o + b * x[O] + h * x[O + 1] + row * x[O + 2];
-    const T* grow = dout + b * x[DO] + h * x[DO + 1] + row * x[DO + 2];
+    const float* orow = o + b * x[O] + h * x[O + 1] + row * x[O + 2];
+    const float* grow = dout + b * x[DO] + h * x[DO + 1] + row * x[DO + 2];
     float acc = 0.f;
     for (int c = lane; c < HD; c += 32)
-      acc = fmaf(to_f32(orow[c]), to_f32(grow[c]), acc);
+      acc = fmaf(orow[c], grow[c], acc);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       acc += __shfl_xor_sync(kFull, acc, off);
     if (lane == 0) delta[row_base + row] = acc;
   }
+  if (sh.lse_given) return;
 
+  load_tile<HD, HD, kThreads>(Qs, q + b * x[Q] + h * x[Q + 1] + q0 * x[Q + 2],
+                              x[Q + 2], kBQ, min(kBQ, sh.Sq - q0), sh.scale);
   int k_begin, k_end;
   key_band(sh, q0, kBQ, k_begin, k_end);
-  const T* kp = k + b * x[K] + hk * x[K + 1];
+  const float* kp = k + b * x[K] + hk * x[K + 1];
   float m[kRows], l[kRows];
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
@@ -272,7 +237,7 @@ __global__ void __launch_bounds__(WARPS * 32)
   for (int kt = k_begin; kt < k_end; kt += kBK) {
     __syncthreads();  // the previous tile's readers are done
     const int valid = min(kBK, sh.Skv - kt);
-    load_tile<T, HD, kLDK, kThreads>(Ks, kp + kt * x[K + 2], x[K + 2], kBK,
+    load_tile<HD, kLDK, kThreads>(Ks, kp + kt * x[K + 2], x[K + 2], kBK,
                                      valid, 1.f);
     __syncthreads();
     float s[kRows];
@@ -314,12 +279,12 @@ constexpr int dkdv_smem() {
   return 4 * (2 * kBK * (HD + 4) + 2 * kBQB * HD + 2 * kBQB * kBK + 2 * kBQB);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kWarpsB * 32)
-    dkdv(const T* __restrict__ q, const T* __restrict__ k,
-         const T* __restrict__ v, const T* __restrict__ dout,
+    dkdv(const float* __restrict__ q, const float* __restrict__ k,
+         const float* __restrict__ v, const float* __restrict__ dout,
          const float* __restrict__ lse, const float* __restrict__ delta,
-         T* __restrict__ dk, T* __restrict__ dv, Strides st, Shape sh) {
+         float* __restrict__ dk, float* __restrict__ dv, Strides st, Shape sh) {
   constexpr int kThreads = kWarpsB * 32;
   constexpr int kLDK = HD + 4;
   constexpr int kCols = HD / 32;  // columns a lane accumulates
@@ -341,9 +306,9 @@ __global__ void __launch_bounds__(kWarpsB * 32)
   const int offset = sh.Skv - sh.Sq;
   const int kvalid = min(kBK, sh.Skv - k0);
 
-  load_tile<T, HD, kLDK, kThreads>(Ks, k + b * x[K] + hk * x[K + 1] + k0 * x[K + 2],
+  load_tile<HD, kLDK, kThreads>(Ks, k + b * x[K] + hk * x[K + 1] + k0 * x[K + 2],
                                    x[K + 2], kBK, kvalid, 1.f);
-  load_tile<T, HD, kLDK, kThreads>(Vs, v + b * x[V] + hk * x[V + 1] + k0 * x[V + 2],
+  load_tile<HD, kLDK, kThreads>(Vs, v + b * x[V] + hk * x[V + 1] + k0 * x[V + 2],
                                    x[V + 2], kBK, kvalid, 1.f);
   // the query rows whose band reaches these keys
   const int q_lo = sh.causal ? max(0, k0 - offset) : 0;
@@ -366,9 +331,9 @@ __global__ void __launch_bounds__(kWarpsB * 32)
     for (int qt = q_lo; qt < q_hi; qt += kBQB) {
       const int rows = min(kBQB, q_hi - qt);
       __syncthreads();  // the previous tile's readers are done
-      load_tile<T, HD, HD, kThreads>(Qs, q + b * x[Q] + h * x[Q + 1] + qt * x[Q + 2],
+      load_tile<HD, HD, kThreads>(Qs, q + b * x[Q] + h * x[Q + 1] + qt * x[Q + 2],
                                      x[Q + 2], kBQB, rows, sh.scale);
-      load_tile<T, HD, HD, kThreads>(
+      load_tile<HD, HD, kThreads>(
           dOs, dout + b * x[DO] + h * x[DO + 1] + qt * x[DO + 2], x[DO + 2],
           kBQB, rows, 1.f);
       for (int r = threadIdx.x; r < kBQB; r += kThreads) {
@@ -414,16 +379,16 @@ __global__ void __launch_bounds__(kWarpsB * 32)
     }
   }
 
-  T* dkp = dk + b * x[DK] + hk * x[DK + 1];
-  T* dvp = dv + b * x[DV] + hk * x[DV + 1];
+  float* dkp = dk + b * x[DK] + hk * x[DK + 1];
+  float* dvp = dv + b * x[DV] + hk * x[DV + 1];
 #pragma unroll
   for (int kk = 0; kk < kKeysWarp; ++kk) {
     const int key = k0 + kw + kk;
     if (key < sh.Skv) {
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
-        store(dkp + key * x[DK + 2] + lane + 32 * c, adk[kk][c]);
-        store(dvp + key * x[DV + 2] + lane + 32 * c, adv[kk][c]);
+        dkp[key * x[DK + 2] + lane + 32 * c] = adk[kk][c];
+        dvp[key * x[DV + 2] + lane + 32 * c] = adv[kk][c];
       }
     }
   }
@@ -438,12 +403,12 @@ constexpr int dq_smem() {
               WARPS * kRows * kBK);
 }
 
-template <typename T, int HD, int WARPS>
+template <int HD, int WARPS>
 __global__ void __launch_bounds__(WARPS * 32)
-    dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ dout,
+    dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              T* __restrict__ dq, Strides st, Shape sh) {
+              float* __restrict__ dq, Strides st, Shape sh) {
   constexpr int kThreads = WARPS * 32;
   constexpr int kBQ = WARPS * kRows;
   constexpr int kLDK = HD + 4;
@@ -464,9 +429,9 @@ __global__ void __launch_bounds__(WARPS * 32)
   const long long row_base = ((long long)b * sh.Hq + h) * sh.Sq;
   const int nrows = min(kBQ, sh.Sq - q0);
 
-  load_tile<T, HD, HD, kThreads>(Qs, q + b * x[Q] + h * x[Q + 1] + q0 * x[Q + 2],
+  load_tile<HD, HD, kThreads>(Qs, q + b * x[Q] + h * x[Q + 1] + q0 * x[Q + 2],
                                  x[Q + 2], kBQ, nrows, sh.scale);
-  load_tile<T, HD, HD, kThreads>(dOs, dout + b * x[DO] + h * x[DO + 1] + q0 * x[DO + 2],
+  load_tile<HD, HD, kThreads>(dOs, dout + b * x[DO] + h * x[DO + 1] + q0 * x[DO + 2],
                                  x[DO + 2], kBQ, nrows, 1.f);
   float L[kRows], D[kRows];
 #pragma unroll
@@ -477,8 +442,8 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
   int k_begin, k_end;
   key_band(sh, q0, kBQ, k_begin, k_end);
-  const T* kp = k + b * x[K] + hk * x[K + 1];
-  const T* vp = v + b * x[V] + hk * x[V + 1];
+  const float* kp = k + b * x[K] + hk * x[K + 1];
+  const float* vp = v + b * x[V] + hk * x[V + 1];
   float acc[kRows][kCols];
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
@@ -489,9 +454,9 @@ __global__ void __launch_bounds__(WARPS * 32)
   for (int kt = k_begin; kt < k_end; kt += kBK) {
     __syncthreads();  // the previous tile's readers are done
     const int valid = min(kBK, sh.Skv - kt);
-    load_tile<T, HD, kLDK, kThreads>(Ks, kp + kt * x[K + 2], x[K + 2], kBK,
+    load_tile<HD, kLDK, kThreads>(Ks, kp + kt * x[K + 2], x[K + 2], kBK,
                                      valid, 1.f);
-    load_tile<T, HD, kLDK, kThreads>(Vs, vp + kt * x[V + 2], x[V + 2], kBK,
+    load_tile<HD, kLDK, kThreads>(Vs, vp + kt * x[V + 2], x[V + 2], kBK,
                                      valid, 1.f);
     __syncthreads();
     float s[kRows], dp[kRows];
@@ -534,14 +499,14 @@ __global__ void __launch_bounds__(WARPS * 32)
     }
   }
 
-  T* dqp = dq + b * x[DQ] + h * x[DQ + 1];
+  float* dqp = dq + b * x[DQ] + h * x[DQ + 1];
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int row = q0 + r0 + i;
     if (row < sh.Sq) {
 #pragma unroll
       for (int c = 0; c < kCols; ++c)
-        store(dqp + row * x[DQ + 2] + lane + 32 * c, acc[i][c] * sh.scale);
+        dqp[row * x[DQ + 2] + lane + 32 * c] = acc[i][c] * sh.scale;
     }
   }
 }
@@ -551,50 +516,49 @@ constexpr int lse_smem(int warps) {
   return 4 * (warps * kRows * HD + kBK * (HD + 4));
 }
 
-template <typename T, int HD, int WARPS>
+template <int HD, int WARPS>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, void* dq, void* dk, void* dv, float* lse,
            float* delta, const Strides& st, const Shape& sh, int B, int Hkv,
            cudaStream_t s) {
   constexpr int kBQ = WARPS * kRows;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
+  const float* qt = static_cast<const float*>(q);
+  const float* kt = static_cast<const float*>(k);
+  const float* vt = static_cast<const float*>(v);
+  const float* dot = static_cast<const float*>(dout);
   const dim3 rows_grid(sh.Hq, (sh.Sq + kBQ - 1) / kBQ, B);
 
-  auto ka = lse_delta<T, HD, WARPS>;
+  auto ka = lse_delta<HD, WARPS>;
   constexpr int sa = lse_smem<HD>(WARPS);
   cudaError_t e = cudaFuncSetAttribute(
       ka, cudaFuncAttributeMaxDynamicSharedMemorySize, sa);
   if (e != cudaSuccess) return (int)e;
-  ka<<<rows_grid, WARPS * 32, sa, s>>>(qt, kt, static_cast<const T*>(o), dot,
+  ka<<<rows_grid, WARPS * 32, sa, s>>>(qt, kt, static_cast<const float*>(o), dot,
                                         lse, delta, st, sh);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
-  auto kb = dkdv<T, HD>;
+  auto kb = dkdv<HD>;
   constexpr int sb = dkdv_smem<HD>();
   e = cudaFuncSetAttribute(kb, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            sb);
   if (e != cudaSuccess) return (int)e;
   kb<<<dim3(Hkv, (sh.Skv + kBK - 1) / kBK, B), kWarpsB * 32, sb, s>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+      qt, kt, vt, dot, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv),
       st, sh);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
-  auto kc = dq_kernel<T, HD, WARPS>;
+  auto kc = dq_kernel<HD, WARPS>;
   constexpr int sc = dq_smem<HD, WARPS>();
   e = cudaFuncSetAttribute(kc, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            sc);
   if (e != cudaSuccess) return (int)e;
   kc<<<rows_grid, WARPS * 32, sc, s>>>(qt, kt, vt, dot, lse, delta,
-                                        static_cast<T*>(dq), st, sh);
+                                        static_cast<float*>(dq), st, sh);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dispatch(int hd, const void* q, const void* k, const void* v,
              const void* o, const void* dout, void* dq, void* dk, void* dv,
              float* lse, float* delta, const Strides& st, const Shape& sh,
@@ -603,16 +567,16 @@ int dispatch(int hd, const void* q, const void* k, const void* v,
   // takes 4 so that (c)'s Q, dO, K and V tiles fit in shared memory
   switch (hd) {
     case 32:
-      return launch<T, 32, 8>(q, k, v, o, dout, dq, dk, dv, lse, delta, st,
+      return launch<32, 8>(q, k, v, o, dout, dq, dk, dv, lse, delta, st,
                               sh, B, Hkv, s);
     case 64:
-      return launch<T, 64, 8>(q, k, v, o, dout, dq, dk, dv, lse, delta, st,
+      return launch<64, 8>(q, k, v, o, dout, dq, dk, dv, lse, delta, st,
                               sh, B, Hkv, s);
     case 128:
-      return launch<T, 128, 8>(q, k, v, o, dout, dq, dk, dv, lse, delta, st,
+      return launch<128, 8>(q, k, v, o, dout, dq, dk, dv, lse, delta, st,
                                sh, B, Hkv, s);
     case 256:
-      return launch<T, 256, 4>(q, k, v, o, dout, dq, dk, dv, lse, delta, st,
+      return launch<256, 4>(q, k, v, o, dout, dq, dk, dv, lse, delta, st,
                                sh, B, Hkv, s);
     default:
       return (int)cudaErrorInvalidValue;
@@ -624,29 +588,29 @@ int dispatch(int hd, const void* q, const void* k, const void* v,
 extern "C" {
 
 // q (B, Hq, Sq, hd), k/v (B, Hkv, Skv, hd), o and dout like q, dq like q,
-// dk/dv like k, all f32 (bf16 == 0) or all bf16, each addressed by the 24
-// element strides in `strides` (q, k, v, o, dout, dq, dk, dv; batch, head,
-// seq); hd in {32, 64, 128, 256} is contiguous; every pointer and stride
-// is a multiple of 16 bytes.  lse and delta: f32 scratch of B * Hq * Sq.
-// Returns a cudaError_t code (0 on success).  Three launches, in order.
+// dk/dv like k, all f32, each addressed by the 24 element strides in
+// `strides` (q, k, v, o, dout, dq, dk, dv; batch, head, seq); hd in {32,
+// 64, 128, 256} is contiguous; every pointer and stride is a multiple of
+// 16 bytes.  lse and delta: f32 (B, Hq, Sq); lse holds the forward's
+// log-sum-exp if lse_given, else it is scratch like delta.  Returns a
+// cudaError_t code (0 on success).  Three launches, in order.
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const void* dout, void* dq, void* dk,
                         void* dv, void* lse, void* delta,
                         const long long* strides, int B, int Hq, int Hkv,
                         int Sq, int Skv, int hd, float scale, int causal,
-                        int window, float softcap, int bf16, void* stream) {
+                        int window, float softcap, int lse_given,
+                        void* stream) {
   if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || Skv < Sq) return (int)cudaErrorInvalidValue;
   Strides st;
   for (int i = 0; i < 24; ++i) st.x[i] = strides[i];
-  const Shape sh{Hq, Hq / Hkv, Sq, Skv, causal, window, scale, softcap};
+  const Shape sh{Hq,    Hq / Hkv, Sq,      Skv,      causal,
+                 window, scale,    softcap, lse_given};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   float* d = static_cast<float*>(delta);
-  if (bf16)
-    return dispatch<__nv_bfloat16>(hd, q, k, v, o, dout, dq, dk, dv, l, d, st,
-                                   sh, B, Hkv, s);
-  return dispatch<float>(hd, q, k, v, o, dout, dq, dk, dv, l, d, st, sh, B,
+  return dispatch(hd, q, k, v, o, dout, dq, dk, dv, l, d, st, sh, B,
                          Hkv, s);
 }
 

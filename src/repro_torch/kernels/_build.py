@@ -12,8 +12,9 @@ it against PyTorch's headers and libraries into the Python module
 ``<name>``, and ``load_module`` imports it.
 
 All sources build together, one compiler process each, into
-``<repo>/build/repro_torch/<hash>/``, where the hash covers every source
-and the flags; a tree that was already built for the same sources is
+``<repo>/build/repro_torch/<hash>/``, where the hash covers every source,
+every shared header (``csrc/*.cuh``, which the ``.cu`` files include) and
+the flags; a tree that was already built for the same sources is
 reused.  Each library's compiler output (registers, shared memory,
 spills) is kept beside it as ``lib<name>.log``.  Nothing builds at import:
 the first CUDA launch builds.
@@ -88,7 +89,7 @@ def build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in CSRC.glob("*.cpp"):
         h.update(" ".join(_host_cmd(src, Path("out"))).encode())
-    for src in _sources():
+    for src in [*_sources(), *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]

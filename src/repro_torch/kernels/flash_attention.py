@@ -5,10 +5,14 @@ Replaces ``repro.kernels.flash_attention.flash_attention`` (Pallas,
 forward only).  bf16 inputs (the serving and training paths) go to the
 tensor-core kernel ``csrc/flash_attention_bf16.cu`` (wgmma, TMA), f32
 inputs to the FMA kernel ``csrc/flash_attention.cu``, which keeps f32
-products exact.  The backward (``csrc/flash_attention_backward.cu``, f32
-FMAs for either dtype) replaces the gradient the reference takes through
-its jnp attention.  Each source says what bounds it; all walk only the
-key tiles the mask touches.
+products exact.  The backward replaces the gradient the reference takes
+through its jnp attention, split by dtype the same way: bf16 on the
+tensor cores (``csrc/flash_attention_backward_bf16.cu``: wgmma, TMA, the
+causal band spread over the card), f32 on FMAs
+(``csrc/flash_attention_backward.cu``).  The forward hands each row's
+log-sum-exp to the backward on request (``return_lse``), so the backward
+does not recompute Q.K^T for it.  Each source says what bounds it; all
+walk only the key tiles the mask touches.
 
 The kernel layout is the reference's: q (B, Hq, Sq, hd), k/v (B, Hkv,
 Skv, hd), queries right-aligned to the KV tail.  The kernel addresses each
@@ -26,18 +30,26 @@ from repro_torch.kernels import (LAUNCHES, _build, check_launch, require,
                                  stream_of)
 
 HEAD_DIMS = (32, 64, 128, 256)
-# (q, k, v, o, strides, B, Hq, Hkv, Sq, Skv, hd, scale, causal, window,
-#  softcap, stream) -> CUDA error code; by dtype: (library, function)
-_ARGS = (_build.P, _build.P, _build.P, _build.P, _build.P,
-         _build.I, _build.I, _build.I, _build.I, _build.I, _build.I,
-         _build.F, _build.I, _build.I, _build.F, _build.P)
+# (q, k, v, o, lse, strides, B, Hq, Hkv, Sq, Skv, hd, scale, causal,
+#  window, softcap, stream) -> CUDA error code; by dtype: (library,
+#  function)
+_ARGS = (*(_build.P,) * 6, *(_build.I,) * 6, _build.F, _build.I, _build.I,
+         _build.F, _build.P)
 _KERNELS = {torch.float32: ("flash_attention", "flash_attention_fwd"),
             torch.bfloat16: ("flash_attention_bf16", "flash_attention_bf16_fwd")}
-# (q, k, v, o, dout, dq, dk, dv, lse, delta, strides, B, Hq, Hkv, Sq, Skv,
-#  hd, scale, causal, window, softcap, bf16, stream) -> CUDA error code
+# f32: (q, k, v, o, dout, dq, dk, dv, lse, delta, strides, B, Hq, Hkv, Sq,
+#  Skv, hd, scale, causal, window, softcap, lse_given, stream)
 _BWD_SIGS = {"flash_attention_bwd": (_build.I, (
     *(_build.P,) * 11, *(_build.I,) * 6, _build.F, _build.I, _build.I,
     _build.F, _build.I, _build.P))}
+# bf16: (q, k, v, o, dout, lse, dq, dk, dv, scratch, strides, B, Hq, Hkv,
+#  Sq, Skv, hd, scale, causal, window, softcap, stream); its scratch's size
+#  from (B, Hq, Hkv, Sq, Skv, hd, causal, window), in f32 values
+_BWD_BF16_SIGS = {
+    "flash_attention_bf16_bwd": (_build.I, (
+        *(_build.P,) * 11, *(_build.I,) * 6, _build.F, _build.I, _build.I,
+        _build.F, _build.P)),
+    "flash_attention_bf16_bwd_scratch": (_build.LL, (_build.I,) * 8)}
 
 
 def _aligned(t: torch.Tensor) -> bool:
@@ -72,43 +84,66 @@ def _check(q, k, v, window, softcap):
     require(window >= 0 and softcap >= 0, "window and softcap must be >= 0")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: int = 0,
-                    softcap: float = 0.0) -> torch.Tensor:
-    """Kernel launch.  q (B, Hq, Sq, hd), k/v (B, Hkv, Skv, hd), one dtype
-    (f32 or bf16) on one CUDA device, hd in ``HEAD_DIMS``, Hq a multiple
-    of Hkv, Skv >= Sq -> (B, Hq, Sq, hd) in q's dtype and strides."""
-    _check(q, k, v, window, softcap)
+def _forward(q, k, v, out, lse, causal, window, softcap) -> int:
+    """One launch of the dtype's forward kernel: the output into ``out``
+    and, given ``lse``, each row's log-sum-exp into it; with ``out`` None
+    the log-sum-exp alone.  Returns the CUDA error code."""
     B, Hq, Sq, hd = q.shape
     _, Hkv, Skv, _ = k.shape
-    out = torch.empty_like(q)              # q's strides (dense views)
-    require(all(_aligned(t) for t in (q, k, v, out)),
-            "q, k, v need a contiguous head dim and 16-byte aligned "
-            "pointers and strides")
-    if q.numel() == 0:
-        return out
-    strides = (_build.LL * 12)(*(s for t in (q, k, v, out)
+    o = q if out is None else out          # no output: its strides unread
+    strides = (_build.LL * 12)(*(s for t in (q, k, v, o)
                                  for s in t.stride()[:3]))
     name, fn = _KERNELS[q.dtype]
     fn = getattr(_build.load(name, {fn: (_build.I, _ARGS)}), fn)
     with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                strides, B, Hq, Hkv, Sq, Skv, hd, 1.0 / math.sqrt(hd),
-                int(causal), int(window), float(softcap), stream_of(q))
-    check_launch(rc, "flash_attention")
-    LAUNCHES["flash_attention"] += 1
-    return out
+        return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  None if out is None else out.data_ptr(),
+                  None if lse is None else lse.data_ptr(), strides, B, Hq,
+                  Hkv, Sq, Skv, hd, 1.0 / math.sqrt(hd), int(causal),
+                  int(window), float(softcap), stream_of(q))
+
+
+def _rows(q: torch.Tensor) -> torch.Tensor:
+    """An f32 value per query row, (B, Hq, Sq)."""
+    return torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, return_lse: bool = False):
+    """Kernel launch.  q (B, Hq, Sq, hd), k/v (B, Hkv, Skv, hd), one dtype
+    (f32 or bf16) on one CUDA device, hd in ``HEAD_DIMS``, Hq a multiple
+    of Hkv, Skv >= Sq -> (B, Hq, Sq, hd) in q's dtype and strides; with
+    ``return_lse`` the pair (output, each row's f32 log-sum-exp (B, Hq,
+    Sq), natural log), which ``flash_attention_backward`` takes."""
+    _check(q, k, v, window, softcap)
+    out = torch.empty_like(q)              # q's strides (dense views)
+    lse = _rows(q) if return_lse else None
+    require(all(_aligned(t) for t in (q, k, v, out)),
+            "q, k, v need a contiguous head dim and 16-byte aligned "
+            "pointers and strides")
+    if q.numel():
+        check_launch(_forward(q, k, v, out, lse, causal, window, softcap),
+                     "flash_attention")
+        LAUNCHES["flash_attention"] += 1
+    return (out, lse) if return_lse else out
 
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, out: torch.Tensor,
                              dout: torch.Tensor, causal: bool = True,
-                             window: int = 0, softcap: float = 0.0):
+                             window: int = 0, softcap: float = 0.0,
+                             lse: torch.Tensor = None):
     """Kernel launch of the backward: the forward's q, k, v and output
     ``out``, and the output's gradient ``dout`` (like q, same dtype) ->
     (dq, dk, dv) in the inputs' dtype and strides.  The forward's contract
-    holds for every tensor.  One call, one count: three kernels (the rows'
-    log-sum-exp and D, then dK/dV by key tile, then dQ by query tile)."""
+    holds for every tensor.  ``lse``: the forward's log-sum-exp
+    (``flash_attention(..., return_lse=True)``); without it the call
+    computes it (bf16: the forward kernel without its output; f32: the
+    first kernel's pass over the band).  One call, one count.  bf16:
+    the rows' D, dK/dV by runs of a key tile's steps (runs summed in
+    order where a key tile took several), dQ by query tile; f32: the
+    rows' D, dK/dV by key tile, dQ by query tile."""
     _check(q, k, v, window, softcap)
     require(out.shape == q.shape and dout.shape == q.shape
             and out.dtype == q.dtype and dout.dtype == q.dtype
@@ -116,24 +151,47 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
             "out and dout must be like q")
     B, Hq, Sq, hd = q.shape
     _, Hkv, Skv, _ = k.shape
+    if lse is not None:
+        require(lse.shape == (B, Hq, Sq) and lse.dtype == torch.float32
+                and lse.device == q.device,
+                "lse must be the forward's f32 (B, Hq, Sq) log-sum-exp")
+        lse = lse.contiguous()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     require(all(_aligned(t) for t in (q, k, v, out, dout, dq, dk, dv)),
             "q, k, v, out and dout need a contiguous head dim and 16-byte "
             "aligned pointers and strides")
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
     strides = (_build.LL * 24)(*(s for t in (q, k, v, out, dout, dq, dk, dv)
                                  for s in t.stride()[:3]))
-    lib = _build.load("flash_attention_backward", _BWD_SIGS)
+    opts = (1.0 / math.sqrt(hd), int(causal), int(window), float(softcap))
+    given = lse is not None
+    if not given:
+        lse = _rows(q)
     with torch.cuda.device(q.device):
-        rc = lib.flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), strides, B, Hq, Hkv, Sq, Skv,
-            hd, 1.0 / math.sqrt(hd), int(causal), int(window),
-            float(softcap), int(q.dtype == torch.bfloat16), stream_of(q))
+        if q.dtype == torch.bfloat16:
+            if not given:
+                check_launch(_forward(q, k, v, None, lse, causal, window,
+                                      softcap), "flash_attention_backward")
+            lib = _build.load("flash_attention_backward_bf16",
+                              _BWD_BF16_SIGS)
+            scratch = torch.empty(
+                lib.flash_attention_bf16_bwd_scratch(
+                    B, Hq, Hkv, Sq, Skv, hd, int(causal), int(window)),
+                dtype=torch.float32, device=q.device)
+            rc = lib.flash_attention_bf16_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), strides,
+                B, Hq, Hkv, Sq, Skv, hd, *opts, stream_of(q))
+        else:
+            delta = _rows(q)
+            lib = _build.load("flash_attention_backward", _BWD_SIGS)
+            rc = lib.flash_attention_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), strides, B, Hq, Hkv,
+                Sq, Skv, hd, *opts, int(given), stream_of(q))
     check_launch(rc, "flash_attention_backward")
     LAUNCHES["flash_attention_backward"] += 1
     return dq, dk, dv

@@ -35,33 +35,36 @@ def embedding_bag(table, idx):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Attention over the kernel layout (B, H, S, hd); saves q, k, v and
-    the output for the backward."""
+    """Attention over the kernel layout (B, H, S, hd); saves q, k, v, the
+    output and, when an input needs a gradient, the forward's per-row
+    log-sum-exp, which the backward then does not recompute (serving
+    does not pay for it)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap):
         ctx.mask = (causal, window, softcap)
-        if on_card(q, k, v):
-            out = _fa.flash_attention(q, k, v, causal=causal, window=window,
-                                      softcap=softcap)
+        fwd = _fa.flash_attention if on_card(q, k, v) else ref.flash_attention
+        if any(ctx.needs_input_grad[:3]):
+            out, lse = fwd(q, k, v, causal=causal, window=window,
+                           softcap=softcap, return_lse=True)
         else:
-            out = ref.flash_attention(q, k, v, causal=causal, window=window,
-                                      softcap=softcap)
-        ctx.save_for_backward(q, k, v, out)
+            out, lse = fwd(q, k, v, causal=causal, window=window,
+                           softcap=softcap), None
+        ctx.save_for_backward(q, k, v, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         if on_card(q, k, v, out, dout):
             if not _fa._aligned(dout):
                 # the model's layout (B, S, H, hd), dense
                 dout = dout.transpose(1, 2).contiguous().transpose(1, 2)
             grads = _fa.flash_attention_backward(q, k, v, out, dout,
-                                                 *ctx.mask)
+                                                 *ctx.mask, lse=lse)
         else:
             grads = ref.flash_attention_backward(q, k, v, out, dout,
-                                                 *ctx.mask)
+                                                 *ctx.mask, lse=lse)
         return (*grads, None, None, None)
 
 

@@ -51,21 +51,28 @@ def embedding_bags_backward(grad_out, sparse, rows):
             for i, n in enumerate(rows)]
 
 
-def flash_attention(q, k, v, causal=True, window=0, softcap=0.0):
-    """q: (B, Hq, Sq, hd); k/v: (B, Hkv, Skv, hd) -> (B, Hq, Sq, hd).
+def flash_attention(q, k, v, causal=True, window=0, softcap=0.0,
+                    return_lse=False):
+    """q: (B, Hq, Sq, hd); k/v: (B, Hkv, Skv, hd) -> (B, Hq, Sq, hd), and
+    with ``return_lse`` also each row's f32 log-sum-exp (B, Hq, Sq) of the
+    masked (softcapped) scores, natural log: what the backward needs.
 
     The (B, Hq, Sq, Skv) f32 scores are materialized after K/V are
     repeated to every query head (kv head = h // g); queries are
     right-aligned to the KV tail."""
-    p, _ = _attention_probs(q, k, causal, window, softcap)
+    s, _ = _attention_scores(q, k, causal, window, softcap)
     vq = v.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
-    return torch.einsum("bhst,bhtd->bhsd", p, vq.float()).to(q.dtype)
+    out = torch.einsum("bhst,bhtd->bhsd", torch.softmax(s, dim=-1),
+                       vq.float()).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1)
+    return out
 
 
-def _attention_probs(q, k, causal, window, softcap):
-    """The f32 probabilities of ``flash_attention`` (B, Hq, Sq, Skv) and
-    the softcap's tanh (None without one), K repeated to the query
-    heads."""
+def _attention_scores(q, k, causal, window, softcap):
+    """The f32 masked scores of ``flash_attention`` (B, Hq, Sq, Skv), -1e30
+    where the mask drops a key, and the softcap's tanh (None without one),
+    K repeated to the query heads."""
     B, Hq, Sq, hd = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     kq = k.repeat_interleave(Hq // Hkv, dim=1)
@@ -81,17 +88,17 @@ def _attention_probs(q, k, causal, window, softcap):
         mask &= j <= i
     if window:
         mask &= (i - j) < window
-    s = torch.where(mask[None, None], s, -1e30)
-    return torch.softmax(s, dim=-1), t
+    return torch.where(mask[None, None], s, -1e30), t
 
 
 def flash_attention_backward(q, k, v, out, dout, causal=True, window=0,
-                             softcap=0.0):
+                             softcap=0.0, lse=None):
     """Gradients (dq, dk, dv) of ``flash_attention`` in the inputs' dtypes,
     from its output ``out`` and the output's gradient ``dout`` (both
     (B, Hq, Sq, hd)), all in f32:
 
-        P = softmax of the masked (softcapped) scores, as the forward
+        P = softmax of the masked (softcapped) scores, as the forward;
+            given the forward's ``lse`` (B, Hq, Sq), P = exp(s - lse)
         dV = P^T dO,  dP = dO V^T,  D = rowsum(dO * O)
         dS = P * (dP - D)  [* (1 - tanh^2(s / cap)) with a softcap]
         dQ = dS K / sqrt(hd),  dK = dS^T Q / sqrt(hd)
@@ -100,7 +107,11 @@ def flash_attention_backward(q, k, v, out, dout, causal=True, window=0,
     B, Hq, Sq, hd = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     g = Hq // Hkv
-    p, t = _attention_probs(q, k, causal, window, softcap)
+    s, t = _attention_scores(q, k, causal, window, softcap)
+    if lse is None:
+        p = torch.softmax(s, dim=-1)
+    else:
+        p = torch.exp(s - lse.float()[..., None])
     do = dout.float()
     kq = k.float().repeat_interleave(g, dim=1)
     vq = v.float().repeat_interleave(g, dim=1)

@@ -1,0 +1,113 @@
+"""Where the bf16 attention backward spends its time on the card.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_attention_backward
+
+At the bf16 shapes of ``chip_smoke.py`` phase 2c (the training path's,
+the window case's, gemma2's with softcap), with the forward's log-sum-exp
+handed over as ``ops`` hands it, prints for each: the device time per call
+by kernel (``torch.profiler``, 10 calls), the CUDA-event time per call
+over 50 calls back to back and of one call alone (median of 25), and the
+host time to enqueue a call.  First the card's name and power limit and
+the backward library's registers and spills (``ptxas -v``, from the
+build's log).  Needs a GPU.
+"""
+from __future__ import annotations
+
+import json
+import re
+import statistics
+import subprocess
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch import resolve_device
+from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as fa
+
+# name: (B, Hq, Hkv, S, hd), window, softcap; causal, queries over all keys
+CASES = {"training (8, 10, 512, 256)": ((8, 10, 1, 512, 256), 2048, 0.0),
+         "window bites (2, 10, 4096, 256)": ((2, 10, 1, 4096, 256), 2048, 0.0),
+         "gemma2 global softcap (1, 8, 4096, 256)": ((1, 8, 4, 4096, 256), 0,
+                                                     50.0)}
+
+
+def _kernel_name(key: str) -> str:
+    """``flash_bwd_dq<256>`` from the profiler's demangled signature or
+    ptxas's mangled name; other keys as they are."""
+    m = (re.search(r"::(\w+<\d+>)\(", key)
+         or re.search(r"\d+(flash_\w+?)ILi(\d+)E", key))
+    if m is None:
+        return key
+    return m.group(1) if m.lastindex == 1 else f"{m.group(1)}<{m.group(2)}>"
+
+
+def _events_ms(fn, calls: int) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def profile_case(dev, shape, window, softcap, reps: int = 10) -> dict:
+    B, Hq, Hkv, S, hd = shape
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q, k, v, do = (torch.randn((B, h, S, hd), generator=gen, device=dev)
+                   .bfloat16() for h in (Hq, Hkv, Hkv, Hq))
+    out, lse = fa.flash_attention(q, k, v, True, window, softcap,
+                                  return_lse=True)
+
+    def call():
+        return fa.flash_attention_backward(q, k, v, out, do, True, window,
+                                           softcap, lse=lse)
+
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize(dev)
+    by_kernel = {_kernel_name(e.key):
+                 round(e.device_time_total / reps / 1e3, 4)
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA}
+    t0 = time.perf_counter()
+    for _ in range(50):
+        call()
+    host_ms = (time.perf_counter() - t0) / 50 * 1e3
+    torch.cuda.synchronize(dev)
+    back_to_back = _events_ms(call, 50)
+    alone = statistics.median(_events_ms(call, 1) for _ in range(25))
+    return {"device_ms_by_kernel": by_kernel,
+            "device_ms": round(sum(by_kernel.values()), 4),
+            "back_to_back_ms": round(back_to_back, 4),
+            "one_call_ms": round(alone, 4),
+            "host_enqueue_ms": round(host_ms, 4)}
+
+
+def main() -> None:
+    dev = resolve_device("cuda")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    log = _build.build_all() / "libflash_attention_backward_bf16.log"
+    name = ""
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = _kernel_name(line.split("'")[1])
+        elif "registers" in line or "spill" in line:
+            print(f"{name}: {line.strip()}")
+    for case, (shape, window, softcap) in CASES.items():
+        print(case, json.dumps(profile_case(dev, shape, window, softcap)),
+              flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -572,15 +572,30 @@ BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 5e-3)}
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,hd,causal,window,softcap",
                          FLASH_CARD_CASES + [
-                             # a key tile (32) and a dkdv query tile (64)
-                             # edge, and the training path's MQA shape
+                             # the f32 kernels' key tile (32) and query
+                             # tile (64) edges, and the training path's
+                             # MQA shape
                              (1, 2, 1, 31, 33, 32, True, 0, 0.0),
                              (1, 2, 2, 65, 97, 64, True, 32, 0.0),
-                             (2, 10, 1, 128, 128, 256, True, 2048, 0.0)])
+                             (2, 10, 1, 128, 128, 256, True, 2048, 0.0),
+                             # the bf16 kernels' tiles: 64 keys, 64 query
+                             # rows; a tile short, exact, one over, at
+                             # each head dim
+                             (1, 2, 1, 63, 63, 32, True, 0, 0.0),
+                             (1, 2, 1, 64, 64, 64, True, 0, 0.0),
+                             (1, 2, 1, 65, 65, 128, True, 0, 0.0),
+                             (1, 10, 1, 63, 65, 256, True, 0, 0.0),
+                             (2, 10, 1, 129, 129, 256, True, 64, 0.0),
+                             (1, 8, 2, 127, 191, 128, True, 65, 30.0),
+                             (2, 6, 3, 100, 163, 64, False, 63, 0.0),
+                             (1, 4, 1, 1, 64, 256, True, 0, 50.0),
+                             (1, 10, 1, 257, 257, 32, True, 128, 0.0)])
 def test_flash_attention_backward_kernel(card, B, Hq, Hkv, Sq, Skv, hd,
                                          causal, window, softcap, dtype):
     """The backward kernel against the plain backward on the same q, k, v,
-    output and output gradient, one launch a call."""
+    output and output gradient, one launch a call: given the forward
+    kernel's log-sum-exp and without it, both within ``BWD_TOL``, and
+    the same gradients bit for bit from a second call."""
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device=card).manual_seed(Sq * 7 + Skv + hd)
     q = torch.randn((B, Hq, Sq, hd), generator=g, device=card).to(dtype)
@@ -588,21 +603,29 @@ def test_flash_attention_backward_kernel(card, B, Hq, Hkv, Sq, Skv, hd,
     v = torch.randn((B, Hkv, Skv, hd), generator=g, device=card).to(dtype)
     do = torch.randn((B, Hq, Sq, hd), generator=g, device=card).to(dtype)
     out = ref.flash_attention(q, k, v, causal, window, softcap)
-    before = LAUNCHES["flash_attention_backward"]
-    got = fa.flash_attention_backward(q, k, v, out, do, causal, window,
-                                      softcap)
-    assert LAUNCHES["flash_attention_backward"] == before + 1
+    _, lse = fa.flash_attention(q, k, v, causal, window, softcap,
+                                return_lse=True)
     want = ref.flash_attention_backward(q, k, v, out, do, causal, window,
                                         softcap)
-    for a, b in zip(got, want):
-        assert a.shape == b.shape and a.dtype == dtype
-        assert_grad_close(a, b, *BWD_TOL[dtype])
+    for given in (None, lse):
+        before = LAUNCHES["flash_attention_backward"]
+        got = fa.flash_attention_backward(q, k, v, out, do, causal, window,
+                                          softcap, lse=given)
+        assert LAUNCHES["flash_attention_backward"] == before + 1
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.dtype == dtype
+            assert_grad_close(a, b, *BWD_TOL[dtype])
+    again = fa.flash_attention_backward(q, k, v, out, do, causal, window,
+                                        softcap, lse=lse)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_autograd_through_the_kernels_on_the_card(card, dtype):
     """``ops.flash_attention`` and ``ops.rglru_scan`` on CUDA tensors give
-    gradients (no dropped ones) equal to the backward kernels' outputs."""
+    gradients (no dropped ones) equal to the backward kernels' outputs;
+    attention's forward hands its log-sum-exp to the backward (one launch
+    each way)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru_scan as rg
     g = torch.Generator(device=card).manual_seed(11)
@@ -616,9 +639,11 @@ def test_autograd_through_the_kernels_on_the_card(card, dtype):
     assert LAUNCHES["flash_attention"] == before["flash_attention"] + 1
     assert LAUNCHES["flash_attention_backward"] == \
         before["flash_attention_backward"] + 1
+    lt = [x.detach().transpose(1, 2) for x in (q, k, v)]
+    _, lse = fa.flash_attention(*lt, True, 40, 0.0, return_lse=True)
     want = fa.flash_attention_backward(
-        *(x.detach().transpose(1, 2) for x in (q, k, v, out)),
-        do.transpose(1, 2).contiguous(), True, 40, 0.0)
+        *lt, out.detach().transpose(1, 2), do.transpose(1, 2).contiguous(),
+        True, 40, 0.0, lse=lse)
     for a, b in zip(got, want):
         assert torch.equal(a, b.transpose(1, 2))
     a = torch.sigmoid(torch.randn((2, 70, 96), generator=g, device=card)

@@ -85,11 +85,12 @@ def test_plain_attention_backward_matches_jax_and_autograd(case, dtype):
     dout = rng.normal(size=(B, Sq, Hq, hd)).astype(np.float32)
     tdt = getattr(torch, dtype)
     qt, kt, vt, dt = (torch.tensor(x).to(tdt) for x in (q, k, v, dout))
-    out = ref.flash_attention(qt.transpose(1, 2), kt.transpose(1, 2),
-                              vt.transpose(1, 2), True, window, cap)
+    out, lse = ref.flash_attention(qt.transpose(1, 2), kt.transpose(1, 2),
+                                   vt.transpose(1, 2), True, window, cap,
+                                   return_lse=True)
     got = ref.flash_attention_backward(
         qt.transpose(1, 2), kt.transpose(1, 2), vt.transpose(1, 2), out,
-        dt.transpose(1, 2), True, window, cap)
+        dt.transpose(1, 2), True, window, cap, lse=lse)
     assert [g.dtype for g in got] == [tdt] * 3
     got = [g.transpose(1, 2) for g in got]
     # the reference's gradient, from the same (rounded) inputs in f32
@@ -104,7 +105,7 @@ def test_plain_attention_backward_matches_jax_and_autograd(case, dtype):
                             softcap=cap)
     auto = torch.autograd.grad(o, leaves_, dt)
     for g, a in zip(got, auto):
-        assert torch.equal(g, a)            # ops' backward is this function
+        assert torch.equal(g, a)   # ops' backward: this, the forward's LSE
 
 
 def test_plain_attention_backward_is_not_autograd_of_itself():
