@@ -113,32 +113,36 @@ freed first):
    256) keys with window 2048, gemma2's (1, 8, 4096, 256) over (1, 4,
    4096, 256) global with softcap 50, the reduced f32 case, and phase 4b's
    f32 prefill shape (2, 10, 2176, 256) over (2, 1, 2176, 256) (the f32
-   FMA kernel at full width, beside f32 SDPA with TF32 off); the scan at
+   3xTF32 kernel at full width, beside f32 SDPA with TF32 off); the scan at
    (2, 4096, 2560) f32 and bf16 (bit for bit), with its own device time
    (profiler) and, as a yardstick, one ``torch.add`` over the same
    tensors, which moves the same bytes.  bf16 attention outputs
    must agree within 1e-2 * |plain| + 4e-3 (one bf16 rounding and some),
    and the plain version with its window one key tile (64) short must
    fall outside that limit.  Bounds: the unmasked band's flops over the peak
-   of the dtype's arithmetic (bf16 tensor cores, f32 FMA) or the bytes,
-   whichever is larger; library time: ``F.scaled_dot_product_attention``
-   with the band as its mask where there is no softcap.
+   of the dtype's arithmetic (bf16 tensor cores; f32: three TF32 products
+   a product at the TF32 tensor-core peak, the FMA bound printed beside
+   it) or the bytes, whichever is larger; library time:
+   ``F.scaled_dot_product_attention`` with the band as its mask where
+   there is no softcap.
 2c. The backward kernels against their plain backwards at the training
    path's shapes: attention bf16 (8, 10, 512, 256) over (8, 1, 512, 256)
    with window 2,048 (the training run's), (2, 10, 4096, 256) over (2, 1,
    4096, 256) (the window bites), gemma2's (1, 8, 4096, 256) over (1, 4,
-   4096, 256) global with softcap 50, and f32 (4, 8, 128, 64) over (4, 4,
-   128, 64) with window 256 (the LM example's), within
+   4096, 256) global with softcap 50, f32 (4, 8, 128, 64) over (4, 4,
+   128, 64) with window 256 (the LM example's) and f32 (1, 10, 2176, 256)
+   over (1, 1, 2176, 256) with window 2,048 (the training check 7 (b) at
+   full width), within
    ``BWD_TOL`` (|kernel - plain| <= rtol |plain| + atol max|plain|; the
    plain backward with its window one key tile (64) short must fall
    outside it), both with the forward's log-sum-exp handed over (the path
    ``ops`` takes, and the one timed) and without it; two calls must give
    equal gradients (``torch.equal``); the scan's at (8, 512, 2560) and
    (2, 4096, 2560), f32 and bf16, under ``torch.equal``.  Each with its
-   time (CUDA events, median of 25), its kernels' own device time
-   (profiler), the plain version's time, its bound (2.5 times the
-   forward's band flops at the dtype's peak, or the bytes; the scan: a,
-   h, dh read, da, db written) and the backward of
+   time (CUDA events, median of 25), its kernels' own device time by
+   kernel (profiler), the plain version's time, its bound (2.5 times the
+   forward's band flops at the dtype's rate as in 2b, or the bytes; the
+   scan: a, h, dh read, da, db written) and the backward of
    ``F.scaled_dot_product_attention`` with the band mask (no softcap) or,
    for the scan, one ``torch.add`` over the same bytes.  Autograd through
    ``ops.flash_attention`` (the forward's log-sum-exp reaching the
@@ -182,7 +186,8 @@ LM training with CPR over the token rows (RecurrentGemma-2B):
    parameters: identical policy fields, step 0's loss within 1e-5 and
    every loss within ``TRAIN_AGREE`` (its comment says why).
 
-The script prints its time after every phase.  The last two lines are
+Phases run in the order 1, 2, 3, 4, 2b, 2c, 5, 6, 3b, 4b, 7.  The script
+prints its time after every phase.  The last two lines are
 ``{"kernels": [...]}`` and ``{"ok": true, ...}``.
 """
 from __future__ import annotations
@@ -204,6 +209,10 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+TF32_OPS_PER_S = 495e12        # H100 SXM TF32 tensor cores, dense
+# f32-accurate products on the tensor cores take three TF32 products each
+# (3xTF32, csrc/tf32x3.cuh): the f32 attention kernels' bound
+F32_TC_OPS_PER_S = TF32_OPS_PER_S / 3
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 N_BIG, D, B = 10_131_227, 16, 512
 STEPS_FLAT = 35
@@ -226,8 +235,8 @@ FLASH_CASES = (
      (1e-2, 4e-3)),
     ("recurrentgemma-2b reduced", (2, 4, 1, 128, 64), torch.float32, 64, 0.0,
      (0.0, 2e-5)),
-    # phase 4b's f32 prefill: the FMA kernel at full width (the card tests'
-    # f32 limit)
+    # phase 4b's f32 prefill: the 3xTF32 kernel at full width (the card
+    # tests' f32 limit)
     ("recurrentgemma-2b f32 (phase 4b)", (2, 10, 1, AGREE_SEQ, 256),
      torch.float32, 2048, 0.0, (2e-5, 2e-5)))
 KEY_TILE = 64                # keys per tile of csrc/flash_attention_bf16.cu
@@ -244,13 +253,18 @@ BWD_FLASH_CASES = (
     ("recurrentgemma-2b, window bites", (2, 10, 1, 4096, 256),
      torch.bfloat16, 2048, 0.0),
     ("gemma2-2b global", (1, 8, 4, 4096, 256), torch.bfloat16, 0, 50.0),
-    ("lm-100m example", (4, 8, 4, 128, 64), torch.float32, 256, 0.0))
+    ("lm-100m example", (4, 8, 4, 128, 64), torch.float32, 256, 0.0),
+    # the training check 7 (b) at full width: one local-attention layer of
+    # RecurrentGemma-2B in f32 over AGREE_SEQ tokens
+    ("recurrentgemma-2b f32 (7 (b))", (1, 10, 1, AGREE_SEQ, 256),
+     torch.float32, 2048, 0.0))
 BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 5e-3)}
-BWD_KEY_TILE = 64            # keys per tile of csrc/flash_attention_backward_bf16.cu
+BWD_KEY_TILE = 64            # keys per dK/dV tile of both backward sources
 # the backward's kernels by dtype, as the profiler names them
 BWD_KERNELS = {torch.bfloat16: ("flash_bwd_prep", "flash_bwd_dkdv",
-                                "flash_bwd_dq"),
-               torch.float32: ("lse_delta", "dkdv", "dq_kernel")}
+                                "flash_bwd_dkdv_sum", "flash_bwd_dq"),
+               torch.float32: ("flash_bwd_dq_tf32", "flash_bwd_dkdv_tf32",
+                               "flash_bwd_dkdv_sum_tf32")}
 BWD_SCAN_SHAPES = ((8, 512, 2560), (2, 4096, 2560))
 # phase 7: training RecurrentGemma-2B at full width (batch 8 x 512 tokens,
 # 2 failures of 25 % of 8 shards); steps a mode, and steps 2.. are steady
@@ -431,6 +445,22 @@ def device_ms(fn, kernel, reps: int = 10):
     if not every:
         return None, None
     return own / reps / 1e3, every / reps / 1e3
+
+
+def device_ms_by_kernel(fn, names, reps: int = 10):
+    """Device ms per call of ``fn`` by kernel, for each kernel whose
+    profiler name holds one of ``names`` (the longest matching name), or
+    None where the profiler saw no device time."""
+    events = device_events(fn, reps)
+    if not events:
+        return None
+    out = {}
+    for e in events:
+        hits = [n for n in names if n in e.key]
+        if hits:
+            name = max(hits, key=len)
+            out[name] = out.get(name, 0.0) + e.device_time_total / reps / 1e3
+    return {n: round(out[n], 4) for n in names if n in out}
 
 
 def kernels_per_call(fn, reps: int = 10):
@@ -1444,9 +1474,12 @@ def phase_lm_kernels(dev, ops, ref):
                                           cap).transpose(1, 2))
                if window else None)
         pairs = B * Hq * band_pairs(S, S, True, window)
-        rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
-        t_b, by = bound((q.numel() * 2 + k.numel() * 2) * q.element_size(),
-                        ops=4 * hd * pairs, ops_per_s=rate)
+        rate = (BF16_OPS_PER_S if dtype == torch.bfloat16
+                else F32_TC_OPS_PER_S)
+        nbytes = (q.numel() * 2 + k.numel() * 2) * q.element_size()
+        t_b, by = bound(nbytes, ops=4 * hd * pairs, ops_per_s=rate)
+        fma = ("" if dtype == torch.bfloat16 else " (f32 FMA bound "
+               f"{bound(nbytes, ops=4 * hd * pairs)[0]:.5f})")
         library = None
         if not cap:         # one PyTorch call computes the same function
             i = torch.arange(S, device=dev)
@@ -1462,7 +1495,8 @@ def phase_lm_kernels(dev, ops, ref):
               f"pairs={pairs} max_abs_err={err:.3e} limit |err| <= "
               f"{rtol:g}*|plain| + {atol:g} (largest share of it "
               f"{ratio:.3f}) ok={ok} ms={row['ms']:.4f} "
-              f"plain_ms={row['plain_ms']:.4f} bound_ms={t_b:.5f} ({by}) "
+              f"plain_ms={row['plain_ms']:.4f} bound_ms={t_b:.5f} ({by}"
+              f"{'' if dtype == torch.bfloat16 else ', 3xTF32'}){fma} "
               f"library_ms={library}")
         if off is not None:
             print(f"  window one key tile ({KEY_TILE}) short would read: "
@@ -1600,6 +1634,7 @@ def phase_lm_agreement(dev, params, cfg, small):
     then the ``small`` config on the card against the CPU (phase 4b)."""
     import dataclasses
 
+    from repro_torch.kernels import LAUNCHES
     from repro_torch.launch.serve import make_requests, serve
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_map
@@ -1609,7 +1644,9 @@ def phase_lm_agreement(dev, params, cfg, small):
     gen = torch.Generator(device=dev).manual_seed(3)
     toks = torch.randint(0, cfg.vocab_size, (2, S), generator=gen, device=dev)
     t0 = time.perf_counter()
+    before = LAUNCHES["flash_attention"]
     full, _ = T.forward(params, {"tokens": toks}, cfg)
+    f32_launches = LAUNCHES["flash_attention"] - before
     state = T.init_decode_state(cfg, 2, S, torch.float32, dev)
     err = torch.zeros((), device=dev)
     W = cfg.sliding_window
@@ -1633,7 +1670,8 @@ def phase_lm_agreement(dev, params, cfg, small):
           f"{scale:.4f}, tol=1e-4*max|logit| ok={ok} "
           f"({time.perf_counter() - t0:.1f} s); decode steps past the "
           f"window (positions {W}..{S - 1}, batch 2, f32 activations): "
-          f"{past_ms:.2f} ms per step, not synchronized per step")
+          f"{past_ms:.2f} ms per step, not synchronized per step; f32 "
+          f"flash_attention launches in the prefill: {f32_launches}")
     if not ok:
         fail("prefill and decode disagree at full width")
     del full, state
@@ -1710,9 +1748,12 @@ def phase_lm_backward(dev, ops, ref):
             off = bwd_excess(plain(window - BWD_KEY_TILE), want, rtol, atol)
         del want
         pairs = B * Hq * band_pairs(S, S, True, window)
-        rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+        rate = (BF16_OPS_PER_S if dtype == torch.bfloat16
+                else F32_TC_OPS_PER_S)
         nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
         t_b, by = bound(nbytes, ops=2.5 * 4 * hd * pairs, ops_per_s=rate)
+        fma = ("" if dtype == torch.bfloat16 else " (f32 FMA bound "
+               f"{bound(nbytes, ops=2.5 * 4 * hd * pairs)[0]:.5f})")
         library = None
         if not cap:   # one PyTorch call's backward computes the same thing
             i = torch.arange(S, device=dev)
@@ -1725,7 +1766,8 @@ def phase_lm_backward(dev, ops, ref):
             library = time_ms(lambda: torch.autograd.grad(
                 lo, (lq, lk, lv), dot, retain_graph=True))
             del lo, lq, lk, lv, band
-        own, _ = device_ms(kernel, BWD_KERNELS[dtype])
+        by_kernel = device_ms_by_kernel(kernel, BWD_KERNELS[dtype])
+        own = sum(by_kernel.values()) if by_kernel else None
         row = dict(max_abs_err=err, ms=time_ms(kernel),
                    plain_ms=time_ms(plain, reps=5, warmup=1), bound_ms=t_b,
                    bound_by=by, library_ms=library)
@@ -1739,8 +1781,9 @@ def phase_lm_backward(dev, ops, ref):
               f"equal={same} ms={row['ms']:.4f} (CUDA events, the "
               f"forward's LSE given) kernel device ms="
               f"{'not measured' if own is None else f'{own:.4f}'} "
-              f"(profiler, its kernels) plain_ms="
-              f"{row['plain_ms']:.4f} bound_ms={t_b:.5f} ({by}) "
+              f"(profiler, its kernels: {json.dumps(by_kernel)}) plain_ms="
+              f"{row['plain_ms']:.4f} bound_ms={t_b:.5f} ({by}"
+              f"{'' if dtype == torch.bfloat16 else ', 3xTF32'}){fma} "
               f"library_ms={library} (the backward of "
               f"F.scaled_dot_product_attention, band mask)")
         if off is not None:
@@ -1935,12 +1978,16 @@ def phase_training(dev, kernels, cfg):
     toks = torch.from_numpy(np.random.default_rng(7).integers(
         0, one.vocab_size, (1, AGREE_SEQ)))
     out = {}
+    before = dict(kernels.LAUNCHES)
     for d in (dev, "cpu"):
         params = cpu if d == "cpu" else tree_map(lambda t: t.to(dev), cpu)
         live = [t.detach().requires_grad_(True) for t in leaves(params)]
         loss, _ = T.lm_loss(unflatten(params, live), {"tokens": toks.to(d)},
                             one)
         loss.backward()
+        if d == dev:
+            f32 = {n: kernels.LAUNCHES[n] - before[n] for n in
+                   ("flash_attention", "flash_attention_backward")}
         out[str(d)] = (loss.item(), [t.grad.cpu() for t in live])
         del params, live, loss
     (lg, gg), (lc, gc) = out[str(dev)], out["cpu"]
@@ -1952,7 +1999,8 @@ def phase_training(dev, kernels, cfg):
           f"{lg:.6f} cpu {lc:.6f} (tol 1e-5 relative); {len(gg)} leaves, "
           f"largest |card - cpu| / max|cpu| {max(shares):.3e} (limit "
           f"{GRAD_AGREE:g}; by leaf {', '.join(f'{x:.1e}' for x in shares)}) "
-          f"ok={ok} ({time.perf_counter() - t0:.1f} s)")
+          f"ok={ok} ({time.perf_counter() - t0:.1f} s); f32 attention "
+          f"launches on the card: {json.dumps(f32)}")
     if not ok:
         fail("full-width gradients on the card disagree with the CPU's")
     del out, gg, gc, cpu
@@ -2043,18 +2091,24 @@ def main() -> None:
     phase_agreement(dev)
     torch.cuda.empty_cache()
     phase_done("4")
+    # the LM kernels' checks and one-call times before the harness and the
+    # fleets (phases 5-6), whose processes and threads leave the host
+    # busier: late in the script a one-call time read up to 0.05 ms more
+    # host path (PERF.md section 6, PR 21)
+    print(f"python threads alive: {threading.active_count()}")
+    rows.update(phase_lm_kernels(dev, ops, ref))
+    phase_done("2b")
+    rows.update(phase_lm_backward(dev, ops, ref))
+    phase_done("2c")
     phase_harness(dev, kernels, DLRM_KAGGLE)
     torch.cuda.empty_cache()
     phase_done("5")
     harness_hashes = phase_fleet_figures(dev, kernels, DLRM_KAGGLE)
     torch.cuda.empty_cache()
     phase_done("6")
+    print(f"python threads alive: {threading.active_count()}")
 
     from repro_torch.configs import get_config
-    rows.update(phase_lm_kernels(dev, ops, ref))
-    phase_done("2b")
-    rows.update(phase_lm_backward(dev, ops, ref))
-    phase_done("2c")
     from repro_torch.launch.profile_serve import ARCH
     lm = get_config(ARCH)
     params, lm_launches = phase_serving(dev, kernels, lm)

@@ -17,6 +17,7 @@ import argparse
 import tempfile
 
 from repro_torch.configs.base import ATTN, LOCAL_ATTN, ModelConfig
+from repro_torch.kernels import LAUNCHES
 from repro_torch.launch.train import train
 
 CFG_100M = ModelConfig(
@@ -56,6 +57,7 @@ def main(argv=None):
                         checkpoint_dir=args.checkpoint_dir or tmp,
                         device=args.device)
     r = hist["report"]
+    print("kernel launches:", {k: n for k, n in LAUNCHES.items() if n})
     print(f"\nmode={r['mode']} effective={r['effective_mode']} "
           f"pls={r['measured_pls']:.4f} "
           f"bytes_written={r['bytes_written'] / 2 ** 20:.1f}MiB")

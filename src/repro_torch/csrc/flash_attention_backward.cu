@@ -1,9 +1,9 @@
 // Flash attention backward for Hopper (sm_90a), f32: dQ, dK and dV of the
 // forward of flash_attention.cu (causal and sliding-window masks, the
 // gemma2 logit softcap, GQA/MQA, queries right-aligned to the KV tail),
-// f32 FMAs on the CUDA cores, so every product stays exact in f32 (TF32
-// would keep 10 bits).  bf16 inputs go to the tensor-core kernels of
-// flash_attention_backward_bf16.cu.
+// every product on the tensor cores in 3xTF32 (tf32x3.cuh: each operand
+// split hi / lo, ~21-22 bits a product, sums in f32).  bf16 inputs go to
+// the wgmma kernels of flash_attention_backward_bf16.cu.
 //
 // Replaces: the gradient XLA derives for the reference's jnp attention
 // (src/repro/models/layers.py, attention_forward with use_flash=False,
@@ -12,51 +12,77 @@
 // reference trains through the jnp path.
 //
 // Contract (src/repro_torch/kernels/ref.py flash_attention_backward): with
-// s = q.k / sqrt(hd) in f32, optionally s_c = tanh(s / cap) * cap, P the
-// softmax of the masked s_c over each query row,
+// s = q.k / sqrt(hd) in f32, optionally s_c = tanh(s / cap) * cap,
+// P = exp(s_c - LSE) over the unmasked keys of each query row (LSE the
+// forward's, natural log, f32 (B, Hq, Sq)),
 //     dV = P^T dO,  dP = dO V^T,  D = rowsum(dO * O),
 //     dS = P * (dP - D)  [* (1 - tanh^2(s / cap))],
 //     dQ = dS K / sqrt(hd),  dK = dS^T Q / sqrt(hd),
-// dK and dV summed over the g query heads that share a KV head; every
-// product and sum is an f32 FMA.
+// dK and dV summed over the g query heads that share a KV head.
 //
 // Bound on this card: operations.  The band's backward is 2.5 times the
-// forward's 4 * hd flops a (query, key) pair (dS needs Q.K^T and dO.V^T
-// again, then dV, dK and dQ); at the training shape (8, 10, 512, 256)
-// over one KV head, causal, 26.9 GFLOP: 0.40 ms at the f32 FMA peak.
+// forward's 4 * hd flops a (query, key) pair (S and dP again, then dV, dK
+// and dQ).  In f32 FMAs that is flops / 67 TFLOP/s; f32-accurate on the
+// tensor cores, three TF32 products each, flops / 165 TFLOP/s.  At the
+// training check's (1, 10, 2176, 256) over one KV head, window 2,048:
+// 60.4 GFLOP, 0.366 ms (3xTF32) against 0.90 ms (FMA).  This design does
+// 7 products a pair, not 5: dQ's kernel forms S and dP again rather than
+// take dS from the dK/dV kernel, which buys determinism without atomics;
+// and mma.sync, its TF32 path, reaches ~317 of the 495 TFLOP/s
+// (launch/profile_mma_peak.py).
 //
-// Design: three kernels in one call, no atomics, deterministic.
-//   (a) lse_delta: one CTA per (query tile, head, batch), laid out as the
-//       forward kernel (a warp holds 8 query rows, a lane one key of a
-//       32-key tile); it recomputes each row's log-sum-exp over the band
-//       only (unless the caller hands it the forward's) and forms
-//       D = rowsum(dO * O).  Both go to an f32 scratch.
-//   (b) dkdv: one CTA per (key tile of 32, KV head, batch), 8 warps.  The
-//       tile's K and V stay in shared memory; the CTA walks every query
-//       tile the band sends to these keys, for each of the g query heads:
-//       a score pass (a lane per key, 8 query rows a warp) writes P and dS
-//       to shared memory, then an accumulation pass adds P^T dO and dS^T Q
-//       into dV and dK, which stay in registers (a warp holds 4 keys, a
-//       lane hd / 32 columns of each).
-//   (c) dq: one CTA per (query tile, head, batch), as (a): each key tile
-//       of the band gives dS (the score pass of (b)) and dQ += dS K, held
-//       in registers as the forward holds its output.
-// Q is pre-scaled by 1 / sqrt(hd) as it is loaded, so dK needs no scale
-// and dQ takes it once at the end.
+// Design: three launches in one call (two where no key tile is split),
+// deterministic (no atomics; every sum in a fixed order).  Tiles sit in
+// shared memory in f32 at a padded pitch (tf32x3.cuh); every product is
+// mma.sync m16n8k8 in 3xTF32 with each operand split as it is loaded.
+//   (a) dq: one CTA per (64 query rows, head, batch), longest tiles first.
+//       It first forms D = rowsum(dO * O) for its rows (into the scratch,
+//       for (b)), keeps Q and dO in shared memory and streams 16-key K and
+//       V tiles through a two-stage cp.async ring (hd = 256: 66 + 66 + 2 x
+//       33 KB and a 16 KB exchange).  8 warps in 4 pairs, a pair per 16
+//       rows and a warp per half of hd: each warp forms its half of the
+//       contraction of S = Q K^T and dP = dO V^T (16 x 16), the pair swaps
+//       halves through shared memory on a named barrier and adds them in
+//       one order, so both hold the same dS, and each adds dS K into its
+//       half of dQ (16 x hd / 2: 64 f32 a lane at hd = 256; a warp of the
+//       whole width held 128 and left one warp a sub-partition).  dS's
+//       accumulator is, as it stands, the A fragment over keys.
+//   (b) dkdv: a CTA holds one 64-key tile's K and V (132 KB at hd = 256)
+//       and walks a run of the band's steps, a step one 16-row query tile
+//       of one head, its Q, dO, LSE and D through a two-stage cp.async
+//       ring.  8 warps in 4 pairs, a pair per 16 keys, so that each warp
+//       keeps one 16 x hd accumulator: the even warp forms S^T = K Q^T,
+//       P^T, and dV += P^T dO; the odd one dP^T = V dO^T, takes P^T (times
+//       the softcap's factor) from its partner lane for lane through
+//       shared memory on a named barrier, and forms dS^T and dK += dS^T Q.
+//       The band is spread over the card as in the bf16 backward (its
+//       planning, at this kernel's tiles): a key tile's steps (g heads x
+//       its query tiles; under MQA the first key tile has many times the
+//       last one's) are cut into runs of at most `chunk` steps, `chunk`
+//       the one of least estimated time (whole waves of the SMs times the
+//       longest run); a key tile of one run writes dK and dV itself, the
+//       runs of a longer one write f32 partials.
+//   (c) sum: the partials of each split key tile, in run order.
+// Masks are applied element by element on every tile; (a) and (b) walk
+// only the tiles the band touches.  Loads past Sq or Skv read zeros.
 
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include <algorithm>
+#include <mutex>
+#include <vector>
+
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int kRows = 8;          // query rows a warp holds in a score pass
-constexpr int kBK = 32;           // keys a tile: one a lane in a score pass
-constexpr int kWarpsB = 8;        // warps of a dkdv CTA
-constexpr int kKeysWarp = kBK / kWarpsB;  // keys a dkdv warp accumulates
-constexpr int kBQB = kWarpsB * kRows;     // query rows a dkdv tile
-constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kKT = 64;            // keys of a dK/dV tile
+constexpr int kStep = 16;          // query rows of a dK/dV step
+constexpr int kPairs = kKT / 16;   // warp pairs of a dK/dV CTA
+constexpr int kThreadsKV = 64 * kPairs;
+constexpr int kQT = 64;            // query rows of a dQ tile
+constexpr int kThreadsQ = 256;     // 4 pairs of 16 rows
+constexpr int kBK = 16;            // keys of a dQ key tile
 
 // element strides of (batch, head, seq) of q, k, v, o, do, dq, dk, dv; hd
 // is contiguous
@@ -68,26 +94,40 @@ enum { Q = 0, K = 3, V = 6, O = 9, DO = 12, DQ = 15, DK = 18, DV = 21 };
 struct Shape {
   int Hq, group, Sq, Skv, causal, window;
   float scale, softcap;
-  int lse_given;     // the caller's lse holds the forward's: (a) forms D only
+  int n_kt;      // dK/dV key tiles
+  int chunk;     // the most steps of a dK/dV CTA
+  int n_runs;    // dK/dV CTAs of one (batch, KV head)
 };
 
-// rows x HD f32 (row stride `stride`) -> shared [rows][LD], each times
-// `mul`; rows at or past `valid` are zero-filled.  16-byte loads.
-template <int HD, int LD, int THREADS>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          long long stride, int rows,
-                                          int valid, float mul) {
-  constexpr int kPerRow = HD / 4;
-  for (int idx = threadIdx.x; idx < rows * kPerRow; idx += THREADS) {
-    const int r = idx / kPerRow;
-    const int c = (idx % kPerRow) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < valid) {
-      val = __ldg(reinterpret_cast<const float4*>(src + r * stride + c));
-      val = make_float4(val.x * mul, val.y * mul, val.z * mul, val.w * mul);
-    }
-    *reinterpret_cast<float4*>(dst + r * LD + c) = val;
-  }
+__host__ __device__ __forceinline__ int imin(int a, int b) {
+  return a < b ? a : b;
+}
+__host__ __device__ __forceinline__ int imax(int a, int b) {
+  return a > b ? a : b;
+}
+
+// The query steps whose rows see some key of key tile j:
+// [qt_lo, qt_lo + n_qt) in kStep-row tiles.
+__host__ __device__ __forceinline__ void key_band(const Shape& sh, int j,
+                                                  int& qt_lo, int& n_qt) {
+  const int k0 = j * kKT;
+  const int k_last = imin(k0 + kKT, sh.Skv) - 1;
+  const int offset = sh.Skv - sh.Sq;
+  const int q_lo = sh.causal ? imax(0, k0 - offset) : 0;
+  const int q_hi = sh.window ? imin(sh.Sq, k_last + sh.window - offset)
+                             : sh.Sq;             // exclusive
+  qt_lo = q_lo / kStep;
+  n_qt = q_hi > q_lo ? (q_hi + kStep - 1) / kStep - qt_lo : 0;
+}
+
+// steps of key tile j, and the runs they are cut into
+__host__ __device__ __forceinline__ int tile_steps(const Shape& sh, int j) {
+  int lo, n;
+  key_band(sh, j, lo, n);
+  return n * sh.group;
+}
+__host__ __device__ __forceinline__ int tile_runs(int steps, int chunk) {
+  return steps > chunk ? (steps + chunk - 1) / chunk : 1;
 }
 
 // Whether query position `qpos` sees key `kpos` (< Skv checked by the
@@ -99,8 +139,8 @@ __device__ __forceinline__ bool keeps(const Shape& sh, int qpos, int kpos) {
   return ok;
 }
 
-// The softcapped score and, with a softcap, its derivative factor
-// 1 - tanh^2 (1 without one).
+// The softcapped score of the scaled s and, with a softcap, its
+// derivative factor 1 - tanh^2 (1 without one).
 __device__ __forceinline__ float capped(float s, float softcap, float& dcap) {
   if (softcap > 0.f) {
     const float t = tanhf(s / softcap);
@@ -111,507 +151,604 @@ __device__ __forceinline__ float capped(float s, float softcap, float& dcap) {
   return s;
 }
 
-// x[i] = A row (r0 + i) . B row `lane` over HD for the warp's 8 rows: A in
-// shared [.][HD] (broadcast reads), B in shared [kBK][HD + 4] (a lane's own
-// row, conflict-free 16-byte reads).
-template <int HD>
-__device__ __forceinline__ void dot_rows(const float* A, const float* Bm,
-                                         int r0, int lane, float* x) {
-  constexpr int kLD = HD + 4;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) x[i] = 0.f;
-  const float4* b4 = reinterpret_cast<const float4*>(Bm + lane * kLD);
-#pragma unroll 4
-  for (int d4 = 0; d4 < HD / 4; ++d4) {
-    const float4 bb = b4[d4];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const float4 aa = reinterpret_cast<const float4*>(A + (r0 + i) * HD)[d4];
-      x[i] = fmaf(aa.x, bb.x, x[i]);
-      x[i] = fmaf(aa.y, bb.y, x[i]);
-      x[i] = fmaf(aa.z, bb.z, x[i]);
-      x[i] = fmaf(aa.w, bb.w, x[i]);
-    }
-  }
-}
-
-// (s, dp) of the warp's 8 rows against the lane's key: s = Q.K, dp = dO.V
-// in one walk over HD.
-template <int HD>
-__device__ __forceinline__ void scores(const float* Qs, const float* dOs,
-                                       const float* Ks, const float* Vs,
-                                       int r0, int lane, float* s,
-                                       float* dp) {
-  constexpr int kLD = HD + 4;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    s[i] = 0.f;
-    dp[i] = 0.f;
-  }
-  const float4* k4 = reinterpret_cast<const float4*>(Ks + lane * kLD);
-  const float4* v4 = reinterpret_cast<const float4*>(Vs + lane * kLD);
-#pragma unroll 2
-  for (int d4 = 0; d4 < HD / 4; ++d4) {
-    const float4 kk = k4[d4];
-    const float4 vv = v4[d4];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const float4 qq = reinterpret_cast<const float4*>(Qs + (r0 + i) * HD)[d4];
-      const float4 gg = reinterpret_cast<const float4*>(dOs + (r0 + i) * HD)[d4];
-      s[i] = fmaf(qq.x, kk.x, s[i]);
-      s[i] = fmaf(qq.y, kk.y, s[i]);
-      s[i] = fmaf(qq.z, kk.z, s[i]);
-      s[i] = fmaf(qq.w, kk.w, s[i]);
-      dp[i] = fmaf(gg.x, vv.x, dp[i]);
-      dp[i] = fmaf(gg.y, vv.y, dp[i]);
-      dp[i] = fmaf(gg.z, vv.z, dp[i]);
-      dp[i] = fmaf(gg.w, vv.w, dp[i]);
-    }
-  }
-}
-
-// The keys a query tile [q0, q0 + rows) may see: [k_begin, k_end), k_begin
-// a multiple of kBK.
-__device__ __forceinline__ void key_band(const Shape& sh, int q0, int rows,
-                                         int& k_begin, int& k_end) {
-  const int offset = sh.Skv - sh.Sq;
-  const int pos_lo = q0 + offset;
-  const int pos_hi = min(q0 + rows, sh.Sq) - 1 + offset;
-  k_end = sh.causal ? min(sh.Skv, pos_hi + 1) : sh.Skv;
-  k_begin = (sh.window ? max(0, pos_lo - sh.window + 1) : 0) / kBK * kBK;
-}
-
 // ---------------------------------------------------------------------
-// (a) per query row: D = rowsum(dO * O) and, unless given, lse over the
-// band
-// ---------------------------------------------------------------------
-template <int HD, int WARPS>
-__global__ void __launch_bounds__(WARPS * 32)
-    lse_delta(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ o, const float* __restrict__ dout,
-              float* __restrict__ lse, float* __restrict__ delta,
-              Strides st, Shape sh) {
-  constexpr int kThreads = WARPS * 32;
-  constexpr int kBQ = WARPS * kRows;
-  constexpr int kLDK = HD + 4;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [kBQ][HD]
-  float* Ks = Qs + kBQ * HD;                     // [kBK][kLDK]
-  const long long* x = st.x;
-  const int h = blockIdx.x, b = blockIdx.z;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest tiles first
-  const int hk = h / sh.group;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * kRows;
-  const int offset = sh.Skv - sh.Sq;
-  const long long row_base = ((long long)b * sh.Hq + h) * sh.Sq;
-
-  // D for the warp's rows, each a warp reduction over HD
-#pragma unroll 1
-  for (int i = 0; i < kRows; ++i) {
-    const int row = q0 + r0 + i;
-    if (row >= sh.Sq) break;
-    const float* orow = o + b * x[O] + h * x[O + 1] + row * x[O + 2];
-    const float* grow = dout + b * x[DO] + h * x[DO + 1] + row * x[DO + 2];
-    float acc = 0.f;
-    for (int c = lane; c < HD; c += 32)
-      acc = fmaf(orow[c], grow[c], acc);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(kFull, acc, off);
-    if (lane == 0) delta[row_base + row] = acc;
-  }
-  if (sh.lse_given) return;
-
-  load_tile<HD, HD, kThreads>(Qs, q + b * x[Q] + h * x[Q + 1] + q0 * x[Q + 2],
-                              x[Q + 2], kBQ, min(kBQ, sh.Sq - q0), sh.scale);
-  int k_begin, k_end;
-  key_band(sh, q0, kBQ, k_begin, k_end);
-  const float* kp = k + b * x[K] + hk * x[K + 1];
-  float m[kRows], l[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-  }
-  for (int kt = k_begin; kt < k_end; kt += kBK) {
-    __syncthreads();  // the previous tile's readers are done
-    const int valid = min(kBK, sh.Skv - kt);
-    load_tile<HD, kLDK, kThreads>(Ks, kp + kt * x[K + 2], x[K + 2], kBK,
-                                     valid, 1.f);
-    __syncthreads();
-    float s[kRows];
-    dot_rows<HD>(Qs, Ks, r0, lane, s);
-    const int kpos = kt + lane;
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qpos = q0 + r0 + i + offset;
-      const bool ok = lane < valid && keeps(sh, qpos, kpos);
-      float dcap;
-      const float xs = capped(s[i], sh.softcap, dcap);
-      float mx = ok ? xs : kNegInf;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      float ps = ok ? expf(xs - m_new) : 0.f;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        ps += __shfl_xor_sync(kFull, ps, off);
-      l[i] = l[i] * expf(m[i] - m_new) + ps;
-      m[i] = m_new;
-    }
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = q0 + r0 + i;
-      if (row < sh.Sq) lse[row_base + row] = m[i] + logf(fmaxf(l[i], 1e-30f));
-    }
-  }
-}
-
-// ---------------------------------------------------------------------
-// (b) per key tile: dK and dV over every query tile and head of the band
+// (a) per query tile: D for its rows, then dQ over the band
 // ---------------------------------------------------------------------
 template <int HD>
-constexpr int dkdv_smem() {
-  return 4 * (2 * kBK * (HD + 4) + 2 * kBQB * HD + 2 * kBQB * kBK + 2 * kBQB);
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kWarpsB * 32)
-    dkdv(const float* __restrict__ q, const float* __restrict__ k,
-         const float* __restrict__ v, const float* __restrict__ dout,
-         const float* __restrict__ lse, const float* __restrict__ delta,
-         float* __restrict__ dk, float* __restrict__ dv, Strides st, Shape sh) {
-  constexpr int kThreads = kWarpsB * 32;
-  constexpr int kLDK = HD + 4;
-  constexpr int kCols = HD / 32;  // columns a lane accumulates
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);  // [kBK][kLDK]
-  float* Vs = Ks + kBK * kLDK;                   // [kBK][kLDK]
-  float* Qs = Vs + kBK * kLDK;                   // [kBQB][HD], scaled
-  float* dOs = Qs + kBQB * HD;                   // [kBQB][HD]
-  float* Ps = dOs + kBQB * HD;                   // [kBQB][kBK]
-  float* dSs = Ps + kBQB * kBK;                  // [kBQB][kBK]
-  float* Ls = dSs + kBQB * kBK;                  // [kBQB] lse
-  float* Ds = Ls + kBQB;                         // [kBQB] D
-  const long long* x = st.x;
-  const int hk = blockIdx.x, b = blockIdx.z;
-  const int k0 = blockIdx.y * kBK;   // the first key tiles see the most rows
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * kRows;
-  const int kw = warp * kKeysWarp;   // this warp's keys in the accumulation
-  const int offset = sh.Skv - sh.Sq;
-  const int kvalid = min(kBK, sh.Skv - k0);
-
-  load_tile<HD, kLDK, kThreads>(Ks, k + b * x[K] + hk * x[K + 1] + k0 * x[K + 2],
-                                   x[K + 2], kBK, kvalid, 1.f);
-  load_tile<HD, kLDK, kThreads>(Vs, v + b * x[V] + hk * x[V + 1] + k0 * x[V + 2],
-                                   x[V + 2], kBK, kvalid, 1.f);
-  // the query rows whose band reaches these keys
-  const int q_lo = sh.causal ? max(0, k0 - offset) : 0;
-  const int q_hi = sh.window ? min(sh.Sq, k0 + kBK - 1 + sh.window - offset)
-                             : sh.Sq;
-
-  float adk[kKeysWarp][kCols], adv[kKeysWarp][kCols];
-#pragma unroll
-  for (int kk = 0; kk < kKeysWarp; ++kk) {
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      adk[kk][c] = 0.f;
-      adv[kk][c] = 0.f;
-    }
-  }
-  const int kpos = k0 + lane;
-  for (int g = 0; g < sh.group; ++g) {
-    const int h = hk * sh.group + g;
-    const long long row_base = ((long long)b * sh.Hq + h) * sh.Sq;
-    for (int qt = q_lo; qt < q_hi; qt += kBQB) {
-      const int rows = min(kBQB, q_hi - qt);
-      __syncthreads();  // the previous tile's readers are done
-      load_tile<HD, HD, kThreads>(Qs, q + b * x[Q] + h * x[Q + 1] + qt * x[Q + 2],
-                                     x[Q + 2], kBQB, rows, sh.scale);
-      load_tile<HD, HD, kThreads>(
-          dOs, dout + b * x[DO] + h * x[DO + 1] + qt * x[DO + 2], x[DO + 2],
-          kBQB, rows, 1.f);
-      for (int r = threadIdx.x; r < kBQB; r += kThreads) {
-        Ls[r] = r < rows ? lse[row_base + qt + r] : 0.f;
-        Ds[r] = r < rows ? delta[row_base + qt + r] : 0.f;
-      }
-      __syncthreads();
-
-      // score pass: P and dS of the warp's 8 rows against the lane's key
-      float s[kRows], dp[kRows];
-      scores<HD>(Qs, dOs, Ks, Vs, r0, lane, s, dp);
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int r = r0 + i;
-        const bool ok = r < rows && lane < kvalid &&
-                        keeps(sh, qt + r + offset, kpos);
-        float dcap;
-        const float xs = capped(s[i], sh.softcap, dcap);
-        const float p = ok ? expf(xs - Ls[r]) : 0.f;
-        Ps[r * kBK + lane] = p;
-        dSs[r * kBK + lane] = p * (dp[i] - Ds[r]) * dcap;
-      }
-      __syncthreads();
-
-      // accumulation: dV += P^T dO, dK += dS^T Q for the warp's 4 keys
-#pragma unroll 2
-      for (int r = 0; r < rows; ++r) {
-        const float4 pp = reinterpret_cast<const float4*>(Ps + r * kBK + kw)[0];
-        const float4 dd = reinterpret_cast<const float4*>(dSs + r * kBK + kw)[0];
-        const float pk[kKeysWarp] = {pp.x, pp.y, pp.z, pp.w};
-        const float dk4[kKeysWarp] = {dd.x, dd.y, dd.z, dd.w};
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          const float go = dOs[r * HD + lane + 32 * c];
-          const float qq = Qs[r * HD + lane + 32 * c];
-#pragma unroll
-          for (int kk = 0; kk < kKeysWarp; ++kk) {
-            adv[kk][c] = fmaf(pk[kk], go, adv[kk][c]);
-            adk[kk][c] = fmaf(dk4[kk], qq, adk[kk][c]);
-          }
-        }
-      }
-    }
-  }
-
-  float* dkp = dk + b * x[DK] + hk * x[DK + 1];
-  float* dvp = dv + b * x[DV] + hk * x[DV + 1];
-#pragma unroll
-  for (int kk = 0; kk < kKeysWarp; ++kk) {
-    const int key = k0 + kw + kk;
-    if (key < sh.Skv) {
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        dkp[key * x[DK + 2] + lane + 32 * c] = adk[kk][c];
-        dvp[key * x[DV + 2] + lane + 32 * c] = adv[kk][c];
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------
-// (c) per query tile: dQ over the band
-// ---------------------------------------------------------------------
-template <int HD, int WARPS>
 constexpr int dq_smem() {
-  return 4 * (2 * WARPS * kRows * HD + 2 * kBK * (HD + 4) +
-              WARPS * kRows * kBK);
+  // Q, dO; two stages of K, V; D; the S / dP exchange
+  return 4 * ((2 * kQT + 2 * 2 * kBK) * kPitchRows<HD> + kQT +
+              kThreadsQ / 32 * 16 * 32);
 }
+static_assert(dq_smem<256>() <= 232448, "dq shared memory");
 
-template <int HD, int WARPS>
-__global__ void __launch_bounds__(WARPS * 32)
-    dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              float* __restrict__ dq, Strides st, Shape sh) {
-  constexpr int kThreads = WARPS * 32;
-  constexpr int kBQ = WARPS * kRows;
-  constexpr int kLDK = HD + 4;
-  constexpr int kCols = HD / 32;
+template <int HD>
+__global__ void __launch_bounds__(kThreadsQ, 1)
+    flash_bwd_dq_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ o,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      float* __restrict__ delta, float* __restrict__ dq,
+                      Strides st, Shape sh) {
+  constexpr int kHalf = HD / 2;     // hd columns a warp of a pair takes
+  constexpr int kOT = kHalf / 8;
+  constexpr int LR = kPitchRows<HD>;
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [kBQ][HD], scaled
-  float* dOs = Qs + kBQ * HD;                    // [kBQ][HD]
-  float* Ks = dOs + kBQ * HD;                    // [kBK][kLDK]
-  float* Vs = Ks + kBK * kLDK;                   // [kBK][kLDK]
-  float* dSs = Vs + kBK * kLDK;                  // [kBQ][kBK]
+  float* Qs = reinterpret_cast<float*>(smem4);  // [kQT][LR]
+  float* dOs = Qs + kQT * LR;                    // [kQT][LR]
+  float* KV = dOs + kQT * LR;                    // stage s: K, then V [kBK][LR]
+  float* Ds = KV + 2 * 2 * kBK * LR;             // [kQT]
+  float* xchg = Ds + kQT;                        // [warp][16][32]
   const long long* x = st.x;
   const int h = blockIdx.x, b = blockIdx.z;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest tiles first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kQT;  // longest tiles first
   const int hk = h / sh.group;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * kRows;
+  const int g = lane >> 2, t = lane & 3;
+  const int pair = warp >> 1, half = warp & 1;
+  const int r0 = pair * 16;                 // the pair's rows in the tile
+  const int c0 = half * kHalf;              // this warp's hd columns
   const int offset = sh.Skv - sh.Sq;
   const long long row_base = ((long long)b * sh.Hq + h) * sh.Sq;
-  const int nrows = min(kBQ, sh.Sq - q0);
+  const int nrows = imin(kQT, sh.Sq - q0);
 
-  load_tile<HD, HD, kThreads>(Qs, q + b * x[Q] + h * x[Q + 1] + q0 * x[Q + 2],
-                                 x[Q + 2], kBQ, nrows, sh.scale);
-  load_tile<HD, HD, kThreads>(dOs, dout + b * x[DO] + h * x[DO + 1] + q0 * x[DO + 2],
-                                 x[DO + 2], kBQ, nrows, 1.f);
-  float L[kRows], D[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = q0 + r0 + i;
-    L[i] = row < sh.Sq ? lse[row_base + row] : 0.f;
-    D[i] = row < sh.Sq ? delta[row_base + row] : 0.f;
-  }
-  int k_begin, k_end;
-  key_band(sh, q0, kBQ, k_begin, k_end);
+  // the keys any row of this tile may see, in whole tiles
+  const int pos_lo = q0 + offset, pos_hi = q0 + nrows - 1 + offset;
+  const int k_end = sh.causal ? imin(sh.Skv, pos_hi + 1) : sh.Skv;
+  const int k_begin =
+      (sh.window ? imax(0, pos_lo - sh.window + 1) : 0) / kBK * kBK;
+  const int n_tiles = (k_end - k_begin + kBK - 1) / kBK;
   const float* kp = k + b * x[K] + hk * x[K + 1];
   const float* vp = v + b * x[V] + hk * x[V + 1];
-  float acc[kRows][kCols];
+  auto load_kv = [&](int i) {
+    const int kt = k_begin + i * kBK;
+    const int valid = imin(kBK, sh.Skv - kt);
+    float* Ks = KV + (i & 1) * 2 * kBK * LR;
+    load_tile_async<HD, LR, kThreadsQ>(Ks, kp + kt * x[K + 2], x[K + 2], kBK,
+                                       valid);
+    load_tile_async<HD, LR, kThreadsQ>(Ks + kBK * LR, vp + kt * x[V + 2],
+                                       x[V + 2], kBK, valid);
+    cp_async_commit();
+  };
+  load_tile_async<HD, LR, kThreadsQ>(
+      Qs, q + b * x[Q] + h * x[Q + 1] + q0 * x[Q + 2], x[Q + 2], kQT, nrows);
+  load_tile_async<HD, LR, kThreadsQ>(
+      dOs, dout + b * x[DO] + h * x[DO + 1] + q0 * x[DO + 2], x[DO + 2], kQT,
+      nrows);
+  if (n_tiles > 0) load_kv(0);
+  else cp_async_commit();
+
+  // D = rowsum(dO * O) of the tile's rows, 8 a warp, a warp reduction each
+#pragma unroll 1
+  for (int i = 0; i < kQT / (kThreadsQ / 32); ++i) {
+    const int r = warp * (kQT / (kThreadsQ / 32)) + i;
+    const int row = q0 + r;
+    float acc = 0.f;
+    if (row < sh.Sq) {
+      const float* orow = o + b * x[O] + h * x[O + 1] + row * x[O + 2];
+      const float* grow = dout + b * x[DO] + h * x[DO + 1] + row * x[DO + 2];
+      for (int c = lane; c < HD; c += 32) acc = fmaf(orow[c], grow[c], acc);
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
+      for (int off = 16; off > 0; off >>= 1)
+        acc += __shfl_xor_sync(kFullMask, acc, off);
+      if (lane == 0) delta[row_base + row] = acc;
+    }
+    if (lane == 0) Ds[r] = acc;
+  }
+  __syncthreads();
+  float L[2], D[2];
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + g + 8 * r;
+    L[r] = row < sh.Sq ? lse[row_base + row] : 0.f;
+    D[r] = Ds[r0 + g + 8 * r];
   }
 
-  for (int kt = k_begin; kt < k_end; kt += kBK) {
-    __syncthreads();  // the previous tile's readers are done
-    const int valid = min(kBK, sh.Skv - kt);
-    load_tile<HD, kLDK, kThreads>(Ks, kp + kt * x[K + 2], x[K + 2], kBK,
-                                     valid, 1.f);
-    load_tile<HD, kLDK, kThreads>(Vs, vp + kt * x[V + 2], x[V + 2], kBK,
-                                     valid, 1.f);
-    __syncthreads();
-    float s[kRows], dp[kRows];
-    scores<HD>(Qs, dOs, Ks, Vs, r0, lane, s, dp);
-    const int kpos = kt + lane;
+  float acc[kOT][4];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = r0 + i;
-      const bool ok = r < nrows && lane < valid &&
-                      keeps(sh, q0 + r + offset, kpos);
-      float dcap;
-      const float xs = capped(s[i], sh.softcap, dcap);
-      const float p = ok ? expf(xs - L[i]) : 0.f;
-      dSs[r * kBK + lane] = p * (dp[i] - D[i]) * dcap;
-    }
-    __syncwarp();
-    // acc += dS K over the tile's keys
+  for (int n = 0; n < kOT; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const int qpos0 = q0 + r0 + g + offset;
+  float* mine = xchg + warp * 16 * 32;
+  const float* other = xchg + (warp ^ 1) * 16 * 32;
+  const float* qa = Qs + (r0 + g) * LR + 2 * t;    // Q's and dO's A
+  const float* ga = dOs + (r0 + g) * LR + 2 * t;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int kt = k_begin + i * kBK;
+    cp_async_wait<0>();
+    __syncthreads();        // tile i landed; every warp is done with i - 1
+    if (i + 1 < n_tiles) load_kv(i + 1);
+    const float* Ks = KV + (i & 1) * 2 * kBK * LR;
+    const float* kb = Ks + g * LR + 2 * t;              // K's B, by rows
+    const float* vb = kb + kBK * LR;                    // V's B, by rows
+    const float* kc = Ks + 2 * t * LR + g;              // K's B, by columns
+
+    // this warp's half of the contraction over hd: S = Q K^T and dP =
+    // dO V^T (16 x 16), two accumulator sets on alternate steps
+    float s[2][2][4], dp[2][2][4];
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[u][j][e] = dp[u][j][e] = 0.f;
 #pragma unroll 2
-    for (int j4 = 0; j4 < kBK / 4; ++j4) {
-      float4 dd[kRows];
+    for (int c = c0; c < c0 + kHalf; c += 16) {
 #pragma unroll
-      for (int i = 0; i < kRows; ++i)
-        dd[i] = reinterpret_cast<const float4*>(dSs + (r0 + i) * kBK)[j4];
+      for (int u = 0; u < 2; ++u) {
+        const FragA aq = frag_a<LR>(qa, c + 8 * u);
+        const FragA ag = frag_a<LR>(ga, c + 8 * u);
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float* krow = Ks + (j4 * 4 + jj) * kLDK + lane;
-        float kv[kCols];
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) kv[c] = krow[32 * c];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          const float d = jj == 0 ? dd[i].x
-                        : jj == 1 ? dd[i].y
-                        : jj == 2 ? dd[i].z
-                                  : dd[i].w;
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) acc[i][c] = fmaf(d, kv[c], acc[i][c]);
+        for (int j = 0; j < 2; ++j) {
+          mma3(s[u][j], aq, frag_b_rows(kb + 8 * j * LR, c + 8 * u));
+          mma3(dp[u][j], ag, frag_b_rows(vb + 8 * j * LR, c + 8 * u));
         }
       }
     }
+    // the pair swaps halves; both add them in one order (low half first),
+    // so both hold the same S and dP bit for bit
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[0][j][e] += s[1][j][e];
+        dp[0][j][e] += dp[1][j][e];
+        mine[(j * 4 + e) * 32 + lane] = s[0][j][e];
+        mine[(8 + j * 4 + e) * 32 + lane] = dp[0][j][e];
+      }
+    }
+    bar_sync(1 + pair, 64);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float so = other[(j * 4 + e) * 32 + lane];
+        const float po = other[(8 + j * 4 + e) * 32 + lane];
+        const float sf = half ? so + s[0][j][e] : s[0][j][e] + so;
+        const float pf = half ? po + dp[0][j][e] : dp[0][j][e] + po;
+        const int kpos = kt + 8 * j + 2 * t + (e & 1);
+        const int qpos = qpos0 + (e >> 1) * 8;
+        const bool ok = qpos - offset < sh.Sq && kpos < sh.Skv &&
+                        keeps(sh, qpos, kpos);
+        float dcap;
+        const float xs = capped(sf * sh.scale, sh.softcap, dcap);
+        const float p = ok ? expf(xs - L[e >> 1]) : 0.f;
+        s[0][j][e] = p * (pf - D[e >> 1]) * dcap;     // dS
+      }
+    }
+    // dQ[:, this half] += dS K[:, this half] over the tile's 16 keys
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const FragA a = acc_as_a(s[0][j]);
+#pragma unroll
+      for (int n = 0; n < kOT; ++n)
+        mma3(acc[n], a, frag_b_cols<LR>(kc, 8 * j, c0 + 8 * n));
+    }
   }
+  cp_async_wait<0>();
 
   float* dqp = dq + b * x[DQ] + h * x[DQ + 1];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = q0 + r0 + i;
-    if (row < sh.Sq) {
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + g + 8 * r;
+    if (row >= sh.Sq) continue;
+    float* drow = dqp + row * x[DQ + 2] + c0;
 #pragma unroll
-      for (int c = 0; c < kCols; ++c)
-        dqp[row * x[DQ + 2] + lane + 32 * c] = acc[i][c] * sh.scale;
+    for (int n = 0; n < kOT; ++n)
+      *reinterpret_cast<float2*>(drow + 8 * n + 2 * t) = make_float2(
+          acc[n][2 * r] * sh.scale, acc[n][2 * r + 1] * sh.scale);
+  }
+}
+
+// ---------------------------------------------------------------------
+// (b) per key tile: dK and dV over a run of the band's steps
+// ---------------------------------------------------------------------
+template <int HD>
+constexpr int dkdv_smem() {
+  // K, V; two stages of Q, dO; two stages of LSE, D; the P^T exchange
+  return 4 * ((2 * kKT + 2 * 2 * kStep) * kPitchRows<HD> + 2 * 2 * kStep +
+              kPairs * 32 * 8);
+}
+static_assert(dkdv_smem<256>() <= 232448, "dkdv shared memory");
+
+template <int HD>
+__global__ void __launch_bounds__(kThreadsKV, 1)
+    flash_bwd_dkdv_tf32(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dk, float* __restrict__ dv,
+                        float* __restrict__ partial, Strides st, Shape sh) {
+  constexpr int kOT = HD / 8;
+  constexpr int LR = kPitchRows<HD>;
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);  // [kKT][LR]
+  float* Vs = Ks + kKT * LR;                     // [kKT][LR]
+  float* QD = Vs + kKT * LR;                     // stage s: Q, then dO
+  float* stats = QD + 2 * 2 * kStep * LR;        // stage s: LSE, then D
+  float* xchg = stats + 2 * 2 * kStep;           // [pair][8][32]
+  const long long* x = st.x;
+
+  // this CTA's key tile j and its run [it0, it0 + n) of the tile's steps
+  const int hk = blockIdx.y, b = blockIdx.z;
+  int j = 0, first = 0, steps = 0, runs = 1;
+  for (;; ++j) {
+    steps = tile_steps(sh, j);
+    runs = tile_runs(steps, sh.chunk);
+    if ((int)blockIdx.x < first + runs || j == sh.n_kt - 1) break;
+    first += runs;
+  }
+  const int run = blockIdx.x - first;
+  const int it0 = (int)((long long)run * steps / runs);
+  const int n = (int)((long long)(run + 1) * steps / runs) - it0;
+  int qt_lo, n_qt;
+  key_band(sh, j, qt_lo, n_qt);
+  const int k0 = j * kKT;
+  const int offset = sh.Skv - sh.Sq;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int pair = warp >> 1, odd = warp & 1;
+  const int key0 = pair * 16;              // the pair's keys in the tile
+
+  const int kvalid = imin(kKT, sh.Skv - k0);
+  load_tile_async<HD, LR, kThreadsKV>(
+      Ks, k + b * x[K] + hk * x[K + 1] + k0 * x[K + 2], x[K + 2], kKT, kvalid);
+  load_tile_async<HD, LR, kThreadsKV>(
+      Vs, v + b * x[V] + hk * x[V + 1] + k0 * x[V + 2], x[V + 2], kKT, kvalid);
+  // step i of the run: head hk * group + (it0 + i) / n_qt, query rows from
+  // (qt_lo + (it0 + i) % n_qt) * kStep
+  auto load_step = [&](int i) {
+    const int it = it0 + i;
+    const int h = hk * sh.group + it / n_qt;
+    const int r0 = (qt_lo + it % n_qt) * kStep;
+    const int rows = imin(kStep, sh.Sq - r0);
+    float* Qst = QD + (i & 1) * 2 * kStep * LR;
+    load_tile_async<HD, LR, kThreadsKV>(
+        Qst, q + b * x[Q] + h * x[Q + 1] + r0 * x[Q + 2], x[Q + 2], kStep,
+        rows);
+    load_tile_async<HD, LR, kThreadsKV>(
+        Qst + kStep * LR, dout + b * x[DO] + h * x[DO + 1] + r0 * x[DO + 2],
+        x[DO + 2], kStep, rows);
+    if (threadIdx.x < 2 * kStep) {
+      const int r = threadIdx.x % kStep;
+      const float* src = (threadIdx.x < kStep ? lse : delta) +
+                         ((long long)b * sh.Hq + h) * sh.Sq + r0;
+      cp_async4(stats + (i & 1) * 2 * kStep + threadIdx.x,
+                r < rows ? src + r : src, r < rows);
+    }
+    cp_async_commit();
+  };
+  if (n > 0) load_step(0);
+  else cp_async_commit();
+
+  // the warp's accumulator: dV (even warp) or dK (odd warp), 16 keys x HD
+  float acc[kOT][4];
+#pragma unroll
+  for (int c = 0; c < kOT; ++c)
+    acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
+  float* xw = xchg + pair * 8 * 32;
+  // S^T = K Q^T (even warp) or dP^T = V dO^T (odd): K's or V's A fragments
+  const float* ka = (odd ? Vs : Ks) + (key0 + g) * LR + 2 * t;
+
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();        // step i landed; every warp is done with i - 1
+    if (i + 1 < n) load_step(i + 1);
+    const int it = it0 + i;
+    const int r0 = (qt_lo + it % n_qt) * kStep;   // the step's first row
+    const float* Qst = QD + (i & 1) * 2 * kStep * LR;
+    const float* dOst = Qst + kStep * LR;
+    const float* Lst = stats + (i & 1) * 2 * kStep;
+    const float* Dst = Lst + kStep;
+    // Q's (even) or dO's (odd) B by rows, for the 16 x 16 S^T or dP^T;
+    // dO's (even: dV) or Q's (odd: dK) B by columns, for the accumulation
+    const float* br = (odd ? dOst : Qst) + g * LR + 2 * t;
+    const float* bc = (odd ? Qst : dOst) + 2 * t * LR + g;
+    float s[2][2][4];
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[u][jj][e] = 0.f;
+#pragma unroll 2
+    for (int c = 0; c < HD; c += 16) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const FragA a = frag_a<LR>(ka, c + 8 * u);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+          mma3(s[u][jj], a, frag_b_rows(br + 8 * jj * LR, c + 8 * u));
+      }
+    }
+    // accumulator (key g / g + 8, row 8 jj + 2t / + 1)
+    if (!odd) {
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = 8 * jj + 2 * t + (e & 1);
+          const int kpos = k0 + key0 + g + 8 * (e >> 1);
+          const int qpos = r0 + row + offset;
+          const bool ok = r0 + row < sh.Sq && kpos < sh.Skv &&
+                          keeps(sh, qpos, kpos);
+          float dcap;
+          const float xs =
+              capped((s[0][jj][e] + s[1][jj][e]) * sh.scale, sh.softcap, dcap);
+          const float p = ok ? expf(xs - Lst[row]) : 0.f;
+          s[0][jj][e] = p;
+          xw[(jj * 4 + e) * 32 + lane] = p * dcap;
+        }
+      }
+      bar_arrive(1 + pair, 64);
+      // dV += P^T dO over the step's 16 rows
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const FragA a = acc_as_a(s[0][jj]);
+#pragma unroll
+        for (int c = 0; c < kOT; ++c)
+          mma3(acc[c], a, frag_b_cols<LR>(bc, 8 * jj, 8 * c));
+      }
+    } else {
+      bar_sync(1 + pair, 64);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = 8 * jj + 2 * t + (e & 1);
+          s[0][jj][e] = xw[(jj * 4 + e) * 32 + lane] *
+                        (s[0][jj][e] + s[1][jj][e] - Dst[row]);
+        }
+      }
+      // dK += dS^T Q over the step's 16 rows
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const FragA a = acc_as_a(s[0][jj]);
+#pragma unroll
+        for (int c = 0; c < kOT; ++c)
+          mma3(acc[c], a, frag_b_cols<LR>(bc, 8 * jj, 8 * c));
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  const float mul = odd ? sh.scale : 1.f;
+  if (runs == 1) {
+    const int o = odd ? DK : DV;
+    float* dst = (odd ? dk : dv) + b * x[o] + hk * x[o + 1];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = k0 + key0 + g + 8 * r;
+      if (key >= sh.Skv) continue;
+      float* row = dst + key * x[o + 2];
+#pragma unroll
+      for (int c = 0; c < kOT; ++c)
+        *reinterpret_cast<float2*>(row + 8 * c + 2 * t) =
+            make_float2(acc[c][2 * r] * mul, acc[c][2 * r + 1] * mul);
+    }
+  } else {
+    // f32 partials, [run][dV, dK][key][column], scaled
+    float* dst = partial +
+                 ((((long long)b * gridDim.y + hk) * sh.n_runs + blockIdx.x) *
+                      2 + odd) * kKT * HD;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float* row = dst + (key0 + g + 8 * r) * HD;
+#pragma unroll
+      for (int c = 0; c < kOT; ++c)
+        *reinterpret_cast<float2*>(row + 8 * c + 2 * t) =
+            make_float2(acc[c][2 * r] * mul, acc[c][2 * r + 1] * mul);
     }
   }
 }
 
+// ---------------------------------------------------------------------
+// (c) per key tile of several runs: dV and dK, the runs summed in order
+// ---------------------------------------------------------------------
 template <int HD>
-constexpr int lse_smem(int warps) {
-  return 4 * (warps * kRows * HD + kBK * (HD + 4));
-}
+constexpr int kSumBlocks = 2 * kKT * HD / 4 / 256;   // blocks a key tile
 
-template <int HD, int WARPS>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, void* dq, void* dk, void* dv, float* lse,
-           float* delta, const Strides& st, const Shape& sh, int B, int Hkv,
-           cudaStream_t s) {
-  constexpr int kBQ = WARPS * kRows;
-  const float* qt = static_cast<const float*>(q);
-  const float* kt = static_cast<const float*>(k);
-  const float* vt = static_cast<const float*>(v);
-  const float* dot = static_cast<const float*>(dout);
-  const dim3 rows_grid(sh.Hq, (sh.Sq + kBQ - 1) / kBQ, B);
-
-  auto ka = lse_delta<HD, WARPS>;
-  constexpr int sa = lse_smem<HD>(WARPS);
-  cudaError_t e = cudaFuncSetAttribute(
-      ka, cudaFuncAttributeMaxDynamicSharedMemorySize, sa);
-  if (e != cudaSuccess) return (int)e;
-  ka<<<rows_grid, WARPS * 32, sa, s>>>(qt, kt, static_cast<const float*>(o), dot,
-                                        lse, delta, st, sh);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-
-  auto kb = dkdv<HD>;
-  constexpr int sb = dkdv_smem<HD>();
-  e = cudaFuncSetAttribute(kb, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           sb);
-  if (e != cudaSuccess) return (int)e;
-  kb<<<dim3(Hkv, (sh.Skv + kBK - 1) / kBK, B), kWarpsB * 32, sb, s>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv),
-      st, sh);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-
-  auto kc = dq_kernel<HD, WARPS>;
-  constexpr int sc = dq_smem<HD, WARPS>();
-  e = cudaFuncSetAttribute(kc, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           sc);
-  if (e != cudaSuccess) return (int)e;
-  kc<<<rows_grid, WARPS * 32, sc, s>>>(qt, kt, vt, dot, lse, delta,
-                                        static_cast<float*>(dq), st, sh);
-  return (int)cudaGetLastError();
-}
-
-int dispatch(int hd, const void* q, const void* k, const void* v,
-             const void* o, const void* dout, void* dq, void* dk, void* dv,
-             float* lse, float* delta, const Strides& st, const Shape& sh,
-             int B, int Hkv, cudaStream_t s) {
-  // the row kernels (a) and (c): 8 warps (64 query rows) a CTA; hd = 256
-  // takes 4 so that (c)'s Q, dO, K and V tiles fit in shared memory
-  switch (hd) {
-    case 32:
-      return launch<32, 8>(q, k, v, o, dout, dq, dk, dv, lse, delta, st,
-                              sh, B, Hkv, s);
-    case 64:
-      return launch<64, 8>(q, k, v, o, dout, dq, dk, dv, lse, delta, st,
-                              sh, B, Hkv, s);
-    case 128:
-      return launch<128, 8>(q, k, v, o, dout, dq, dk, dv, lse, delta, st,
-                               sh, B, Hkv, s);
-    case 256:
-      return launch<256, 4>(q, k, v, o, dout, dq, dk, dv, lse, delta, st,
-                               sh, B, Hkv, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+template <int HD>
+__global__ void __launch_bounds__(256)
+    flash_bwd_dkdv_sum_tf32(const float* __restrict__ partial,
+                            float* __restrict__ dk, float* __restrict__ dv,
+                            Strides st, Shape sh) {
+  const int j = blockIdx.x / kSumBlocks<HD>, hk = blockIdx.y, b = blockIdx.z;
+  int first = 0;
+  for (int jj = 0; jj < j; ++jj)
+    first += tile_runs(tile_steps(sh, jj), sh.chunk);
+  const int runs = tile_runs(tile_steps(sh, j), sh.chunk);
+  if (runs == 1) return;                 // (b) wrote this tile itself
+  const int i = (blockIdx.x % kSumBlocks<HD>) * 256 + threadIdx.x;
+  const int part = i / (kKT * HD / 4);   // 0: dV, 1: dK
+  const int row = i / (HD / 4) % kKT, col = i % (HD / 4) * 4;
+  const int key = j * kKT + row;
+  if (key >= sh.Skv) return;
+  const float* src = partial +
+                     ((((long long)b * gridDim.y + hk) * sh.n_runs + first) *
+                          2 + part) * kKT * HD + row * HD + col;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int r = 0; r < runs; ++r) {
+    const float4 u = *reinterpret_cast<const float4*>(src + r * 2 * kKT * HD);
+    a = make_float4(a.x + u.x, a.y + u.y, a.z + u.z, a.w + u.w);
   }
+  const long long* x = st.x;
+  const int o = part ? DK : DV;
+  *reinterpret_cast<float4*>((part ? dk : dv) + b * x[o] + hk * x[o + 1] +
+                             key * x[o + 2] + col) = a;
+}
+
+// The launch plan of one shape: the run length that spreads the dK/dV
+// work over the card's SMs (the bf16 backward's planning, at this
+// kernel's tiles), and the scratch.
+struct Plan {
+  Shape sh;                // scale and softcap unset
+  long long rows;          // D's values, B * Hq * Sq rounded up to 4
+  long long partials;      // f32 partial values (0: no key tile is split)
+};
+
+Plan make_plan(int B, int Hq, int Hkv, int Sq, int Skv, int hd, int causal,
+               int window, int n_sm) {
+  Plan p;
+  Shape& sh = p.sh;
+  sh = Shape{Hq, Hq / Hkv, Sq, Skv, causal, window, 0.f, 0.f,
+             (Skv + kKT - 1) / kKT, 1, 0};
+  std::vector<int> steps(sh.n_kt);
+  long long total = 0;
+  int longest = 0;
+  for (int j = 0; j < sh.n_kt; ++j) {
+    steps[j] = tile_steps(sh, j);
+    total += steps[j];
+    longest = imax(longest, steps[j]);
+  }
+  total *= (long long)B * Hkv;
+  // the run length of least estimated time: whole waves of the SMs (a
+  // last wave of a few CTAs costs a full one) times the longest run plus
+  // two steps for a CTA's own K/V loads and stores, plus two more for the
+  // sum's launch when a tile is split; ties to the longer run.  Runs from
+  // a quarter of a step a CTA up to 4 times that.
+  const int lo = imax(2, (int)((total + 4LL * n_sm - 1) / (4LL * n_sm)));
+  const int hi = imax(lo, imin(longest, 4 * lo));
+  long long best = -1;
+  for (int c = lo; c <= hi; ++c) {
+    int n = 0;
+    for (int j = 0; j < sh.n_kt; ++j) n += tile_runs(steps[j], c);
+    const long long ctas = (long long)n * B * Hkv;
+    const long long cost =
+        (ctas + n_sm - 1) / n_sm * (c + 2) + (n > sh.n_kt ? 2 : 0);
+    if (best < 0 || cost <= best) {
+      best = cost;
+      sh.chunk = c;
+      sh.n_runs = n;
+    }
+  }
+  p.rows = ((long long)B * Hq * Sq + 3) / 4 * 4;   // partials 16-byte aligned
+  p.partials = sh.n_runs > sh.n_kt
+                   ? (long long)B * Hkv * sh.n_runs * 2 * kKT * hd : 0;
+  return p;
+}
+
+// make_plan for the current device, the last shape's kept: a training
+// step calls the backward of one shape many times
+Plan plan_for(int B, int Hq, int Hkv, int Sq, int Skv, int hd, int causal,
+              int window) {
+  static std::mutex mu;
+  static int last[9] = {-1};
+  static Plan plan;
+  static int sms[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) dev = 0;
+  const int key[9] = {B, Hq, Hkv, Sq, Skv, hd, causal, window, dev};
+  std::lock_guard<std::mutex> lock(mu);
+  if (std::equal(key, key + 9, last)) return plan;
+  int n_sm = dev < 64 ? sms[dev] : 0;
+  if (n_sm == 0) {
+    if (cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev) !=
+        cudaSuccess)
+      n_sm = 132;
+    if (dev < 64) sms[dev] = n_sm;
+  }
+  plan = make_plan(B, Hq, Hkv, Sq, Skv, hd, causal, window, n_sm);
+  std::copy(key, key + 9, last);
+  return plan;
+}
+
+template <int HD>
+int launch(const float* q, const float* k, const float* v, const float* o,
+           const float* dout, const float* lse, float* dq, float* dk,
+           float* dv, float* scratch, const Strides& st, const Plan& p, int B,
+           int Hkv, cudaStream_t s) {
+  const Shape& sh = p.sh;
+  float* delta = scratch;
+  float* partial = delta + p.rows;
+
+  cudaError_t e = allow_smem<flash_bwd_dq_tf32<HD>>(dq_smem<HD>());
+  if (e != cudaSuccess) return (int)e;
+  flash_bwd_dq_tf32<HD>
+      <<<dim3(sh.Hq, (sh.Sq + kQT - 1) / kQT, B), kThreadsQ, dq_smem<HD>(),
+         s>>>(q, k, v, o, dout, lse, delta, dq, st, sh);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  e = allow_smem<flash_bwd_dkdv_tf32<HD>>(dkdv_smem<HD>());
+  if (e != cudaSuccess) return (int)e;
+  flash_bwd_dkdv_tf32<HD>
+      <<<dim3(sh.n_runs, Hkv, B), kThreadsKV, dkdv_smem<HD>(), s>>>(
+          q, k, v, dout, lse, delta, dk, dv, partial, st, sh);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || !p.partials) return (int)e;
+
+  flash_bwd_dkdv_sum_tf32<HD>
+      <<<dim3(sh.n_kt * kSumBlocks<HD>, Hkv, B), 256, 0, s>>>(partial, dk, dv,
+                                                               st, sh);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
+// f32 scratch values a flash_attention_bwd call of this shape needs: D of
+// every row, then the dK/dV partials (-1 for a shape it refuses).
+long long flash_attention_bwd_scratch(int B, int Hq, int Hkv, int Sq, int Skv,
+                                      int hd, int causal, int window) {
+  if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
+  if (Hkv <= 0 || Hq % Hkv != 0 || Skv < Sq) return -1;
+  const Plan p = plan_for(B, Hq, Hkv, Sq, Skv, hd, causal, window);
+  return p.rows + p.partials;
+}
+
 // q (B, Hq, Sq, hd), k/v (B, Hkv, Skv, hd), o and dout like q, dq like q,
 // dk/dv like k, all f32, each addressed by the 24 element strides in
 // `strides` (q, k, v, o, dout, dq, dk, dv; batch, head, seq); hd in {32,
 // 64, 128, 256} is contiguous; every pointer and stride is a multiple of
-// 16 bytes.  lse and delta: f32 (B, Hq, Sq); lse holds the forward's
-// log-sum-exp if lse_given, else it is scratch like delta.  Returns a
-// cudaError_t code (0 on success).  Three launches, in order.
+// 16 bytes.  lse: the forward's f32 (B, Hq, Sq) log-sum-exp (contiguous).
+// scratch: flash_attention_bwd_scratch(...) f32 values.  Returns a
+// cudaError_t code (0 on success).  Two or three launches, in order.
 int flash_attention_bwd(const void* q, const void* k, const void* v,
-                        const void* o, const void* dout, void* dq, void* dk,
-                        void* dv, void* lse, void* delta,
+                        const void* o, const void* dout, const void* lse,
+                        void* dq, void* dk, void* dv, void* scratch,
                         const long long* strides, int B, int Hq, int Hkv,
                         int Sq, int Skv, int hd, float scale, int causal,
-                        int window, float softcap, int lse_given,
-                        void* stream) {
+                        int window, float softcap, void* stream) {
   if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || Skv < Sq) return (int)cudaErrorInvalidValue;
   Strides st;
   for (int i = 0; i < 24; ++i) st.x[i] = strides[i];
-  const Shape sh{Hq,    Hq / Hkv, Sq,      Skv,      causal,
-                 window, scale,    softcap, lse_given};
+  Plan p = plan_for(B, Hq, Hkv, Sq, Skv, hd, causal, window);
+  p.sh.scale = scale;
+  p.sh.softcap = softcap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-  float* d = static_cast<float*>(delta);
-  return dispatch(hd, q, k, v, o, dout, dq, dk, dv, l, d, st, sh, B,
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  const float* of = static_cast<const float*>(o);
+  const float* gf = static_cast<const float*>(dout);
+  const float* lf = static_cast<const float*>(lse);
+  float* dqf = static_cast<float*>(dq);
+  float* dkf = static_cast<float*>(dk);
+  float* dvf = static_cast<float*>(dv);
+  float* w = static_cast<float*>(scratch);
+  switch (hd) {
+    case 32:
+      return launch<32>(qf, kf, vf, of, gf, lf, dqf, dkf, dvf, w, st, p, B,
+                        Hkv, s);
+    case 64:
+      return launch<64>(qf, kf, vf, of, gf, lf, dqf, dkf, dvf, w, st, p, B,
+                        Hkv, s);
+    case 128:
+      return launch<128>(qf, kf, vf, of, gf, lf, dqf, dkf, dvf, w, st, p, B,
                          Hkv, s);
+    case 256:
+      return launch<256>(qf, kf, vf, of, gf, lf, dqf, dkf, dvf, w, st, p, B,
+                         Hkv, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

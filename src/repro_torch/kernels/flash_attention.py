@@ -3,16 +3,17 @@ causal / sliding-window masks, the gemma2 logit softcap and GQA/MQA.
 
 Replaces ``repro.kernels.flash_attention.flash_attention`` (Pallas,
 forward only).  bf16 inputs (the serving and training paths) go to the
-tensor-core kernel ``csrc/flash_attention_bf16.cu`` (wgmma, TMA), f32
-inputs to the FMA kernel ``csrc/flash_attention.cu``, which keeps f32
-products exact.  The backward replaces the gradient the reference takes
-through its jnp attention, split by dtype the same way: bf16 on the
-tensor cores (``csrc/flash_attention_backward_bf16.cu``: wgmma, TMA, the
-causal band spread over the card), f32 on FMAs
-(``csrc/flash_attention_backward.cu``).  The forward hands each row's
-log-sum-exp to the backward on request (``return_lse``), so the backward
-does not recompute Q.K^T for it.  Each source says what bounds it; all
-walk only the key tiles the mask touches.
+wgmma kernel ``csrc/flash_attention_bf16.cu`` (TMA), f32 inputs to
+``csrc/flash_attention.cu``, whose products run on the tensor cores in
+3xTF32 (``csrc/tf32x3.cuh``: each operand split into two TF32 parts, ~21
+bits a product, sums in f32).  The backward replaces the gradient the
+reference takes through its jnp attention, split by dtype the same way:
+``csrc/flash_attention_backward_bf16.cu`` (wgmma, TMA) and
+``csrc/flash_attention_backward.cu`` (3xTF32), each spreading the causal
+band's dK/dV work over the card in runs summed in order.  The forward
+hands each row's log-sum-exp to the backward on request
+(``return_lse``), so the backward does not recompute Q.K^T for it.  Each
+source says what bounds it; all walk only the key tiles the mask touches.
 
 The kernel layout is the reference's: q (B, Hq, Sq, hd), k/v (B, Hkv,
 Skv, hd), queries right-aligned to the KV tail.  The kernel addresses each
@@ -26,8 +27,8 @@ import math
 
 import torch
 
-from repro_torch.kernels import (LAUNCHES, _build, check_launch, require,
-                                 stream_of)
+from repro_torch.kernels import (LAUNCHES, _build, check_launch, launch_on,
+                                 require, stream_of)
 
 HEAD_DIMS = (32, 64, 128, 256)
 # (q, k, v, o, lse, strides, B, Hq, Hkv, Sq, Skv, hd, scale, causal,
@@ -37,19 +38,17 @@ _ARGS = (*(_build.P,) * 6, *(_build.I,) * 6, _build.F, _build.I, _build.I,
          _build.F, _build.P)
 _KERNELS = {torch.float32: ("flash_attention", "flash_attention_fwd"),
             torch.bfloat16: ("flash_attention_bf16", "flash_attention_bf16_fwd")}
-# f32: (q, k, v, o, dout, dq, dk, dv, lse, delta, strides, B, Hq, Hkv, Sq,
-#  Skv, hd, scale, causal, window, softcap, lse_given, stream)
-_BWD_SIGS = {"flash_attention_bwd": (_build.I, (
-    *(_build.P,) * 11, *(_build.I,) * 6, _build.F, _build.I, _build.I,
-    _build.F, _build.I, _build.P))}
-# bf16: (q, k, v, o, dout, lse, dq, dk, dv, scratch, strides, B, Hq, Hkv,
-#  Sq, Skv, hd, scale, causal, window, softcap, stream); its scratch's size
-#  from (B, Hq, Hkv, Sq, Skv, hd, causal, window), in f32 values
-_BWD_BF16_SIGS = {
-    "flash_attention_bf16_bwd": (_build.I, (
-        *(_build.P,) * 11, *(_build.I,) * 6, _build.F, _build.I, _build.I,
-        _build.F, _build.P)),
-    "flash_attention_bf16_bwd_scratch": (_build.LL, (_build.I,) * 8)}
+# the backward by dtype: (library, function).  The function takes (q, k,
+# v, o, dout, lse, dq, dk, dv, scratch, strides, B, Hq, Hkv, Sq, Skv, hd,
+# scale, causal, window, softcap, stream); ``<function>_scratch`` gives its
+# scratch's size from (B, Hq, Hkv, Sq, Skv, hd, causal, window), in f32
+# values
+_BWD_KERNELS = {
+    torch.float32: ("flash_attention_backward", "flash_attention_bwd"),
+    torch.bfloat16: ("flash_attention_backward_bf16",
+                     "flash_attention_bf16_bwd")}
+_BWD_ARGS = (*(_build.P,) * 11, *(_build.I,) * 6, _build.F, _build.I,
+             _build.I, _build.F, _build.P)
 
 
 def _aligned(t: torch.Tensor) -> bool:
@@ -91,16 +90,23 @@ def _forward(q, k, v, out, lse, causal, window, softcap) -> int:
     B, Hq, Sq, hd = q.shape
     _, Hkv, Skv, _ = k.shape
     o = q if out is None else out          # no output: its strides unread
-    strides = (_build.LL * 12)(*(s for t in (q, k, v, o)
-                                 for s in t.stride()[:3]))
+    strides = (_build.LL * 12)(*[s for t in (q, k, v, o)
+                                 for s in t.stride()[:3]])
     name, fn = _KERNELS[q.dtype]
     fn = getattr(_build.load(name, {fn: (_build.I, _ARGS)}), fn)
-    with torch.cuda.device(q.device):
-        return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  None if out is None else out.data_ptr(),
-                  None if lse is None else lse.data_ptr(), strides, B, Hq,
-                  Hkv, Sq, Skv, hd, 1.0 / math.sqrt(hd), int(causal),
-                  int(window), float(softcap), stream_of(q))
+    return launch_on(q.get_device(), fn, q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), None if out is None else out.data_ptr(),
+                     None if lse is None else lse.data_ptr(), strides, B, Hq,
+                     Hkv, Sq, Skv, hd, 1.0 / math.sqrt(hd), int(causal),
+                     int(window), float(softcap), stream_of(q))
+
+
+def _backward_fns(dtype):
+    """The dtype's backward launcher and its scratch-size function."""
+    name, fn = _BWD_KERNELS[dtype]
+    lib = _build.load(name, {fn: (_build.I, _BWD_ARGS),
+                             fn + "_scratch": (_build.LL, (_build.I,) * 8)})
+    return getattr(lib, fn), getattr(lib, fn + "_scratch")
 
 
 def _rows(q: torch.Tensor) -> torch.Tensor:
@@ -139,11 +145,10 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     (dq, dk, dv) in the inputs' dtype and strides.  The forward's contract
     holds for every tensor.  ``lse``: the forward's log-sum-exp
     (``flash_attention(..., return_lse=True)``); without it the call
-    computes it (bf16: the forward kernel without its output; f32: the
-    first kernel's pass over the band).  One call, one count.  bf16:
-    the rows' D, dK/dV by runs of a key tile's steps (runs summed in
-    order where a key tile took several), dQ by query tile; f32: the
-    rows' D, dK/dV by key tile, dQ by query tile."""
+    computes it first with the forward kernel (no output written).  One
+    call, one count: the rows' D, dK/dV by runs of a key tile's steps
+    (runs summed in order where a key tile took several), dQ by query
+    tile; one scratch allocation."""
     _check(q, k, v, window, softcap)
     require(out.shape == q.shape and dout.shape == q.shape
             and out.dtype == q.dtype and dout.dtype == q.dtype
@@ -156,42 +161,30 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                 and lse.device == q.device,
                 "lse must be the forward's f32 (B, Hq, Sq) log-sum-exp")
         lse = lse.contiguous()
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    require(all(_aligned(t) for t in (q, k, v, out, dout, dq, dk, dv)),
+    require(all(_aligned(t) for t in (q, k, v, out, dout)),
             "q, k, v, out and dout need a contiguous head dim and 16-byte "
             "aligned pointers and strides")
+    # like q, k, v: their strides where those are dense, else contiguous;
+    # aligned either way
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    strides = (_build.LL * 24)(*(s for t in (q, k, v, out, dout, dq, dk, dv)
-                                 for s in t.stride()[:3]))
-    opts = (1.0 / math.sqrt(hd), int(causal), int(window), float(softcap))
-    given = lse is not None
-    if not given:
-        lse = _rows(q)
-    with torch.cuda.device(q.device):
-        if q.dtype == torch.bfloat16:
-            if not given:
-                check_launch(_forward(q, k, v, None, lse, causal, window,
-                                      softcap), "flash_attention_backward")
-            lib = _build.load("flash_attention_backward_bf16",
-                              _BWD_BF16_SIGS)
-            scratch = torch.empty(
-                lib.flash_attention_bf16_bwd_scratch(
-                    B, Hq, Hkv, Sq, Skv, hd, int(causal), int(window)),
-                dtype=torch.float32, device=q.device)
-            rc = lib.flash_attention_bf16_bwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), strides,
-                B, Hq, Hkv, Sq, Skv, hd, *opts, stream_of(q))
-        else:
-            delta = _rows(q)
-            lib = _build.load("flash_attention_backward", _BWD_SIGS)
-            rc = lib.flash_attention_bwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), strides, B, Hq, Hkv,
-                Sq, Skv, hd, *opts, int(given), stream_of(q))
+    strides = (_build.LL * 24)(*[s for t in (q, k, v, out, dout, dq, dk, dv)
+                                 for s in t.stride()[:3]])
+    fn, scratch_size = _backward_fns(q.dtype)
+    n = scratch_size(B, Hq, Hkv, Sq, Skv, hd, int(causal), int(window))
+    scratch = torch.empty(n + (0 if lse is not None else B * Hq * Sq),
+                          dtype=torch.float32, device=q.device)
+    if lse is None:
+        lse = scratch[n:]
+        check_launch(_forward(q, k, v, None, lse, causal, window, softcap),
+                     "flash_attention_backward")
+    rc = launch_on(q.get_device(), fn, q.data_ptr(), k.data_ptr(),
+                   v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                   lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                   dv.data_ptr(), scratch.data_ptr(), strides, B, Hq, Hkv,
+                   Sq, Skv, hd, 1.0 / math.sqrt(hd), int(causal),
+                   int(window), float(softcap), stream_of(q))
     check_launch(rc, "flash_attention_backward")
     LAUNCHES["flash_attention_backward"] += 1
     return dq, dk, dv

@@ -5,6 +5,8 @@ inside the ``card`` fixture, never at import).  On a GPU machine:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
+(the f32 attention kernels alone: ``-m card -k "flash and float32"``).
+
 Edge shapes the full-width smoke run does not reach: 1 to 26 tables of
 ragged row counts with out-of-range ids in one embedding launch, 65 and
 130 tables (groups of 64, a launch each), rows that are not whole
@@ -498,7 +500,8 @@ FLASH_CARD_CASES = [
 
 
 @pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 2e-5, 2e-5),
-                                             (torch.bfloat16, 1e-2, 4e-3)])
+                                             (torch.bfloat16, 1e-2, 4e-3)],
+                         ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,hd,causal,window,softcap",
                          FLASH_CARD_CASES)
 def test_flash_attention_kernel(card, B, Hq, Hkv, Sq, Skv, hd, causal,
@@ -556,6 +559,45 @@ def test_flash_attention_bf16_tile_edges(card, B, Hq, Hkv, Sq, Skv, hd,
                                 window, softcap, torch.bfloat16, 1e-2, 4e-3)
 
 
+# the f32 forward's tiles (3xTF32): 16 query rows a warp, 128 a CTA,
+# 16-key tiles; a tile short, exact, one over, at hd 32 and 256; the
+# training check 7 (b)'s MQA shape at reduced length
+FLASH_F32_EDGE_CASES = [
+    # B, Hq, Hkv, Sq, Skv, hd, causal, window, softcap
+    (1, 2, 1, 15, 15, 32, True, 0, 0.0),           # one row short of a warp
+    (1, 2, 1, 16, 16, 256, True, 0, 0.0),          # a warp's rows
+    (1, 2, 1, 17, 17, 32, True, 0, 30.0),          # one row over, softcap
+    (1, 2, 1, 63, 63, 256, True, 0, 0.0),
+    (2, 2, 2, 64, 64, 32, False, 0, 0.0),
+    (1, 4, 1, 65, 65, 256, True, 0, 0.0),
+    (1, 2, 1, 127, 127, 32, True, 0, 0.0),         # one row short of a CTA
+    (1, 2, 1, 128, 128, 256, True, 0, 0.0),        # a CTA's rows
+    (1, 4, 2, 129, 129, 256, True, 0, 0.0),        # one row over
+    (1, 2, 1, 40, 55, 256, True, 0, 0.0),          # Skv - Sq = 15
+    (1, 2, 1, 40, 56, 32, True, 0, 0.0),           # Skv - Sq = a key tile
+    (1, 2, 1, 40, 57, 256, True, 0, 0.0),          # one key over
+    (1, 2, 1, 40, 71, 256, True, 0, 0.0),          # 31
+    (1, 2, 1, 40, 72, 32, True, 0, 0.0),           # 32
+    (1, 2, 1, 40, 73, 256, True, 0, 0.0),          # 33
+    (1, 2, 1, 128, 128, 32, True, 15, 0.0),        # window a key short
+    (1, 2, 1, 128, 128, 256, True, 16, 0.0),       # window on a tile edge
+    (1, 2, 1, 128, 128, 32, True, 17, 0.0),        # one key past it
+    (1, 2, 1, 128, 128, 32, True, 31, 0.0),
+    (1, 2, 1, 128, 128, 256, True, 32, 0.0),
+    (1, 2, 1, 128, 128, 32, True, 33, 0.0),
+    (1, 10, 1, 320, 320, 256, True, 256, 0.0),     # 7 (b), cut in length
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,hd,causal,window,softcap",
+                         FLASH_F32_EDGE_CASES)
+def test_flash_attention_float32_tile_edges(card, B, Hq, Hkv, Sq, Skv, hd,
+                                        causal, window, softcap):
+    """The f32 kernel at its tile edges, at the f32 limit (2e-5)."""
+    test_flash_attention_kernel(card, B, Hq, Hkv, Sq, Skv, hd, causal,
+                                window, softcap, torch.float32, 2e-5, 2e-5)
+
+
 def assert_grad_close(got, want, rtol, atol):
     """|got - want| <= rtol * |want| + atol * max |want|, elementwise."""
     got, want = got.float(), want.float()
@@ -569,12 +611,13 @@ def assert_grad_close(got, want, rtol, atol):
 BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 5e-3)}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,hd,causal,window,softcap",
                          FLASH_CARD_CASES + [
-                             # the f32 kernels' key tile (32) and query
-                             # tile (64) edges, and the training path's
-                             # MQA shape
+                             # the first f32 kernels' key tile (32) and
+                             # query tile (64) edges, and the training
+                             # path's MQA shape
                              (1, 2, 1, 31, 33, 32, True, 0, 0.0),
                              (1, 2, 2, 65, 97, 64, True, 32, 0.0),
                              (2, 10, 1, 128, 128, 256, True, 2048, 0.0),
@@ -620,7 +663,46 @@ def test_flash_attention_backward_kernel(card, B, Hq, Hkv, Sq, Skv, hd,
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# the f32 backward's tiles: dK/dV tiles of 64 keys walking steps of 16
+# query rows, dQ tiles of 64 rows walking 16-key tiles; a tile short,
+# exact, one over, at hd 32 and 256; 7 (b)'s MQA shape at reduced length
+BWD_F32_EDGE_CASES = [
+    # B, Hq, Hkv, Sq, Skv, hd, causal, window, softcap
+    (1, 2, 1, 15, 63, 32, True, 0, 0.0),           # a step and a key tile short
+    (1, 2, 1, 16, 64, 256, True, 0, 0.0),          # exact
+    (1, 2, 1, 17, 65, 32, True, 0, 0.0),           # one over
+    (1, 2, 1, 63, 79, 256, True, 16, 0.0),         # dQ rows short, window a tile
+    (2, 2, 2, 64, 64, 32, True, 15, 0.0),          # exact, window a key short
+    (1, 4, 2, 65, 65, 256, True, 17, 30.0),        # one over, softcap
+    (1, 10, 1, 320, 320, 256, True, 256, 0.0),     # 7 (b), cut in length
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,hd,causal,window,softcap",
+                         BWD_F32_EDGE_CASES)
+def test_flash_attention_backward_float32_tile_edges(card, B, Hq, Hkv, Sq, Skv,
+                                                 hd, causal, window, softcap):
+    """The f32 backward at its tile edges, within ``BWD_TOL`` f32, and
+    the same gradients from a second call."""
+    test_flash_attention_backward_kernel(card, B, Hq, Hkv, Sq, Skv, hd,
+                                         causal, window, softcap,
+                                         torch.float32)
+
+
+def test_flash_attention_backward_float32_split_runs_are_deterministic(card):
+    """A shape whose first key tiles are cut into several runs (the
+    scratch holds dK/dV partials): within ``BWD_TOL`` f32, and two calls
+    give equal gradients (the runs are summed in order, no atomics)."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Hq, Hkv, S, hd, window = 1, 10, 1, 512, 256, 384
+    _, scratch_size = fa._backward_fns(torch.float32)
+    assert scratch_size(B, Hq, Hkv, S, S, hd, 1, window) > B * Hq * S
+    test_flash_attention_backward_kernel(card, B, Hq, Hkv, S, S, hd, True,
+                                         window, 0.0, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
 def test_autograd_through_the_kernels_on_the_card(card, dtype):
     """``ops.flash_attention`` and ``ops.rglru_scan`` on CUDA tensors give
     gradients (no dropped ones) equal to the backward kernels' outputs;

@@ -36,13 +36,25 @@ from test_torch_lm import VARIANTS, _params, _variant
 from test_torch_train import _two_threads  # noqa: F401  (autouse fixture)
 
 
-def _rel_close(got, want, tol):
+def _rel_close(got, want, tol, what="gradient"):
     """max |got - want| <= tol * max |want| (in f32)."""
     got = got.float().numpy() if isinstance(got, torch.Tensor) else got
     want = np.asarray(want, np.float32)
     scale = max(float(np.abs(want).max()), 1e-30)
     err = float(np.abs(got.astype(np.float32) - want).max())
-    assert err <= tol * scale, (err, scale)
+    assert err <= tol * scale, (what, err, tol * scale)
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread while a test compares two CPU computations bit
+    for bit: neither then depends on an OpenMP or MKL thread team, whose
+    size and threads other test files in the same worker process set and
+    leave behind."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _jax_attention_vjp(q, k, v, dout, window, softcap):
@@ -76,7 +88,8 @@ ATTN_CASES = {
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", list(ATTN_CASES))
-def test_plain_attention_backward_matches_jax_and_autograd(case, dtype):
+def test_plain_attention_backward_matches_jax_and_autograd(case, dtype,
+                                                          one_thread):
     B, Hq, Hkv, Sq, Skv, hd, window, cap = ATTN_CASES[case]
     rng = np.random.default_rng(len(case))
     q = rng.normal(size=(B, Sq, Hq, hd)).astype(np.float32)
@@ -97,15 +110,18 @@ def test_plain_attention_backward_matches_jax_and_autograd(case, dtype):
     want = _jax_attention_vjp(*(x.float().numpy() for x in (qt, kt, vt, dt)),
                               window, cap)
     tol = 1e-5 if dtype == "float32" else 2e-2
-    for g, w in zip(got, want):
-        _rel_close(g, w, tol)
+    for name, g, w in zip("qkv", got, want):
+        _rel_close(g, w, tol, f"d{name} against jax.vjp")
     # and torch autograd of the port's plain forward (through ops, CPU)
     leaves_ = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
     o = ops.flash_attention(*leaves_, causal=True, window=window,
                             softcap=cap)
     auto = torch.autograd.grad(o, leaves_, dt)
-    for g, a in zip(got, auto):
-        assert torch.equal(g, a)   # ops' backward: this, the forward's LSE
+    for name, g, a in zip("qkv", got, auto):
+        # ops' backward: this, the forward's LSE
+        assert torch.equal(g, a), (f"d{name}: ops' autograd differs from "
+                                   f"the plain backward",
+                                   float((g.float() - a.float()).abs().max()))
 
 
 def test_plain_attention_backward_is_not_autograd_of_itself():
