@@ -80,9 +80,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    set from ``python -m benchmarks_torch.fig7_spread``); (c) ``table1``
    and ``fig14`` at ``--fast`` size (``fig14``'s selection must launch
    ``tracker_select`` and equal the plain version, and its engines' bytes
-   agree); (d) the three ``examples/torch_*.py`` as processes on the
-   card, each exiting 0 with its summary lines (the LM example at 30
-   steps: its f32 attention runs the f32 kernels both ways).  Rows print with the card's
+   agree); (d) the four ``examples/torch_*.py`` as processes on the
+   card, each exiting 0 with its summary lines (the LM example at 20
+   steps: its f32 attention runs the f32 kernels both ways; the serving
+   example decodes 512 tokens of the reduced gemma2-2b).  Rows print with the card's
    ``nvidia-smi`` name and power limit.
 6. The fleet figures (``benchmarks_torch`` fig15-17) on the card, the
    trainer's tables on the device: (a) fig15 at the published Kaggle
@@ -138,7 +139,9 @@ freed first):
    outside it), both with the forward's log-sum-exp handed over (the path
    ``ops`` takes, and the one timed) and without it; two calls must give
    equal gradients (``torch.equal``); the scan's at (8, 512, 2560) and
-   (2, 4096, 2560), f32 and bf16, under ``torch.equal``.  Each with its
+   (2, 4096, 2560), f32 and bf16, under ``torch.equal``, two calls equal
+   (and at ``BWD_SCAN_RAGGED``: odd w, S not a multiple of a tile, a base
+   one element past an aligned address).  Each with its
    time (CUDA events, median of 25), its kernels' own device time by
    kernel (profiler), the plain version's time, its bound (2.5 times the
    forward's band flops at the dtype's rate as in 2b, or the bytes; the
@@ -266,6 +269,7 @@ BWD_KERNELS = {torch.bfloat16: ("flash_bwd_prep", "flash_bwd_dkdv",
                torch.float32: ("flash_bwd_dq_tf32", "flash_bwd_dkdv_tf32",
                                "flash_bwd_dkdv_sum_tf32")}
 BWD_SCAN_SHAPES = ((8, 512, 2560), (2, 4096, 2560))
+BWD_SCAN_RAGGED = ((2, 1000, 2555), (8, 1000, 2555))
 # phase 7: training RecurrentGemma-2B at full width (batch 8 x 512 tokens,
 # 2 failures of 25 % of 8 shards); steps a mode, and steps 2.. are steady
 TRAIN_SHAPE = (8, 512)
@@ -307,7 +311,10 @@ EXAMPLE_LINES = {
     "torch_cpr_tradeoff.py": (r"^  PLS=\S+\s+auc=0\.\d{4} overhead=", 3,
                               ()),
     "torch_train_lm_with_cpr.py": (r"^mode=cpr-mfu effective=cpr-mfu pls=", 1,
-                                   ("--steps", "20"))}
+                                   ("--steps", "20")),
+    # the reduced gemma2-2b decoding 8 x 64 tokens after 32 prompt steps
+    "torch_serve.py": (r"^decode: 512 tokens in \d+\.\d+s -> [\d.]+ tok/s ",
+                       1, ())}
 PROBE_ENV = "CHIP_SMOKE_WRITER_PROBE_DIR"
 # phase 6: the fleet figures.  Audit fields that must be true in every row
 # that has them; the disk and host memory the full-width fig15 needs (two
@@ -1834,6 +1841,8 @@ def phase_lm_backward(dev, ops, ref):
             got = rg.rglru_scan_backward(a, h, dh)
             want = ref.rglru_scan_backward(a, h, dh)
             equal = all(torch.equal(x, y) for x, y in zip(got, want))
+            again = all(torch.equal(x, y) for x, y in
+                        zip(got, rg.rglru_scan_backward(a, h, dh)))
             err = max((x.float() - y.float()).abs().max().item()
                       for x, y in zip(got, want))
             nbytes = 5 * a.numel() * a.element_size()
@@ -1858,9 +1867,12 @@ def phase_lm_backward(dev, ops, ref):
                   f"{'not measured' if own is None else f'{own:.4f}'} "
                   f"(profiler) plain_ms={row['plain_ms']:.4f} bound_ms="
                   f"{t_b:.5f} ({by}) library_ms=None (no PyTorch call); "
-                  f"yardstick torch.add over the same bytes ms={add_ms:.4f}")
+                  f"yardstick torch.add over the same bytes ms={add_ms:.4f}; "
+                  f"two calls equal={again}")
             if not equal:
                 fail("rglru_scan_backward disagrees with its plain version")
+            if not again:
+                fail("rglru_scan_backward differs from call to call")
             if shape == BWD_SCAN_SHAPES[0] and dtype == torch.float32:
                 rows["rglru_scan_backward"] = row
                 la, lb = (t.detach().requires_grad_(True) for t in (a, b))
@@ -1876,6 +1888,29 @@ def phase_lm_backward(dev, ops, ref):
                          "backward kernel's")
                 del la, lb, lh, auto, mine
             del a, b, dh, h, got, want, x, y, z
+    # the ragged edges: odd w (4-byte copies in f32, element loads in
+    # bf16), S not a multiple of either tile, a base one element past an
+    # aligned address, both tile layouts (40 and 160 channels a block)
+    for shape in BWD_SCAN_RAGGED:
+        n = math.prod(shape)
+        for dtype in (torch.float32, torch.bfloat16):
+            a = torch.sigmoid(torch.randn(n + 1, generator=gen, device=dev)
+                              ).to(dtype)[1:].view(shape)
+            h, dh = (torch.randn(n + 1, generator=gen, device=dev).to(
+                dtype)[1:].view(shape) for _ in range(2))
+            got = rg.rglru_scan_backward(a, h, dh)
+            equal = all(torch.equal(x, y) for x, y in
+                        zip(got, ref.rglru_scan_backward(a, h, dh)))
+            again = all(torch.equal(x, y) for x, y in
+                        zip(got, rg.rglru_scan_backward(a, h, dh)))
+            print(f"rglru_scan_backward ragged {shape} {str(dtype)[6:]}, "
+                  f"base {a.data_ptr() % 16} bytes past 16: torch.equal="
+                  f"{equal}, two calls equal={again}")
+            if not (equal and again):
+                fail(f"rglru_scan_backward at the ragged {shape} "
+                     f"{str(dtype)[6:]}: equal={equal}, two calls "
+                     f"equal={again}")
+            del a, h, dh, got
     torch.cuda.empty_cache()
     return rows
 

@@ -35,11 +35,10 @@
 // whole tile is one unrolled, branch-free run of steps, each group of 8
 // steps' a and b read while the previous group runs.  Each step's h goes
 // straight to device memory: a warp's 32 adjacent channels are one
-// contiguous store.
+// contiguous store.  The ring's helpers are in ring.cuh, shared with the
+// backward (rglru_scan_backward.cu).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ring.cuh"
 
 namespace {
 
@@ -55,69 +54,6 @@ constexpr int kMaxDev = 64;
 // bf16, and every shared-memory address in a tile is a constant offset.
 template <int R>
 __host__ __device__ constexpr int tile_steps() { return R == 64 ? 64 : 16; }
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// cp.async of `bytes` (<= VEC) source bytes into a VEC-byte slot; the
-// rest of the slot is zero-filled.
-template <int VEC>
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         int bytes) {
-  const uint32_t d = smem_addr(dst);
-  if constexpr (VEC == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(bytes));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
-                 "l"(src), "n"(VEC), "r"(bytes));
-  }
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar)) : "memory");
-}
-
-// One arrival on `bar` once this thread's cp.async copies so far have
-// landed.
-__device__ __forceinline__ void mbar_arrive_on_copies(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   smem_addr(bar)) : "memory");
-}
-
-// returns once the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// Elements a copy of a tile row: VEC bytes, or one element (plain loads).
-template <typename T, int VEC>
-__host__ __device__ constexpr int per_copy() {
-  return VEC > 0 ? VEC / (int)sizeof(T) : 1;
-}
 
 // Issue one loader thread's copies of a tile: rows [t0, t0 + tn) of
 // channels [c0, c0 + cn) of a and b (element offset `base` = (batch * S +
@@ -277,23 +213,10 @@ int launch(const void* a, const void* b, void* h, int S, int w, int C, int G,
   return (int)cudaGetLastError();
 }
 
-// The widest copy (16 or 4 bytes; 0 = plain loads) that every row of a
-// and b starts aligned to.  Block columns start at multiples of 8
-// elements, so the row stride and the base pointers decide.
-int vec_bytes(const void* a, const void* b, int w, int isz) {
-  const uintptr_t bits = (uintptr_t)a | (uintptr_t)b |
-                         (uintptr_t)((long long)w * isz);
-  return (bits & 15) == 0 ? 16 : (bits & 3) == 0 ? 4 : 0;
-}
-
 template <typename T, int VEC>
 int launch_layout(const void* a, const void* b, void* h, int B, int S, int w,
                   int dev, int n_sm, cudaStream_t s) {
-  // channels a block: the B * G blocks cover the SMs about once
-  const int per_row = n_sm / B > 0 ? n_sm / B : 1;
-  int C = (w + per_row - 1) / per_row;
-  C = (C + 7) / 8 * 8;
-  if (C > kMaxChains) C = kMaxChains;
+  const int C = plan_channels(B, w, n_sm, kMaxChains);
   const int G = (w + C - 1) / C;
   const long long blocks = (long long)B * G;
   if (C <= 64)
@@ -304,7 +227,9 @@ int launch_layout(const void* a, const void* b, void* h, int B, int S, int w,
 template <typename T>
 int launch_vec(const void* a, const void* b, void* h, int B, int S, int w,
                int dev, int n_sm, cudaStream_t s) {
-  switch (vec_bytes(a, b, w, (int)sizeof(T))) {
+  const uintptr_t bits = (uintptr_t)a | (uintptr_t)b |
+                         (uintptr_t)((long long)w * sizeof(T));
+  switch (vec_bytes(bits)) {
     case 16: return launch_layout<T, 16>(a, b, h, B, S, w, dev, n_sm, s);
     case 4: return launch_layout<T, 4>(a, b, h, B, S, w, dev, n_sm, s);
     default: return launch_layout<T, 0>(a, b, h, B, S, w, dev, n_sm, s);
@@ -320,16 +245,9 @@ extern "C" {
 int rglru_scan(const void* a, const void* b, void* h, int B, int S, int w,
                int bf16, void* stream) {
   if (B <= 0 || S <= 0 || w <= 0) return 0;
-  static int sms[kMaxDev];
-  int dev;
-  cudaError_t e = cudaGetDevice(&dev);
+  int dev, n_sm;
+  const cudaError_t e = current_sms(&dev, &n_sm);
   if (e != cudaSuccess) return (int)e;
-  int n_sm = dev < kMaxDev ? sms[dev] : 0;
-  if (n_sm == 0) {
-    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-    if (dev < kMaxDev) sms[dev] = n_sm;
-  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) return launch_vec<__nv_bfloat16>(a, b, h, B, S, w, dev, n_sm, s);
   return launch_vec<float>(a, b, h, B, S, w, dev, n_sm, s);

@@ -5,9 +5,11 @@ Replaces ``repro.kernels.rglru_scan.rglru_scan`` (Pallas, forward only).
 The CUDA source ``csrc/rglru_scan.cu`` keeps one sequential f32 chain per
 (batch, channel), bit for bit the plain version's, and feeds it from a
 ring of time tiles in shared memory that asynchronous copies keep full.
-``csrc/rglru_scan_backward.cu`` walks the same chains in reverse for the
-gradient the reference takes through its jnp scan, bit for bit
-``ref.rglru_scan_backward``.  Each header says what bounds it.
+``csrc/rglru_scan_backward.cu`` walks the same chains in reverse, from a
+ring of the same kind, for the gradient the reference takes through its
+jnp scan, bit for bit ``ref.rglru_scan_backward``; storer warps write its
+outputs out of shared memory in whole rows.  Both share
+``csrc/ring.cuh``.  Each header says what bounds it.
 """
 from __future__ import annotations
 

@@ -799,11 +799,21 @@ def test_rglru_scan_kernel_unaligned_base(card, offset, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,w", [(2, 128, 64), (1, 257, 130), (3, 64, 32),
                                    (1, 1, 5), (1, 17, 33), (8, 512, 2560),
-                                   (2, 4096, 2560)])
+                                   (2, 4096, 2560),
+                                   # one step; S past a 64-step tile; S
+                                   # past a 16-step tile (160 channels)
+                                   (1, 1, 2560), (2, 65, 40), (8, 33, 2560),
+                                   # w < 8 (odd: element loads in bf16)
+                                   (3, 70, 7), (2, 9, 3),
+                                   # B = 1 at full width; B = 16 (256
+                                   # channels a block, more blocks than SMs)
+                                   (1, 129, 2560), (16, 40, 2560)])
 def test_rglru_scan_backward_kernel(card, B, S, w, dtype):
     """Bit-exact against the plain backward: one reverse f32 chain a
-    channel, the product rounded before the sum; ragged S (groups of 16
-    steps) and w (blocks of 32 channels)."""
+    channel, the product rounded before the sum; ragged S (a last tile of
+    fewer steps, walked first) and w (rows of 520, 260, 14 and 6 bytes
+    take 4-byte copies or element loads), and two calls give the same
+    gradients."""
     from repro_torch.kernels import rglru_scan as rg
     g = torch.Generator(device=card).manual_seed(B * S + w + 1)
     a = torch.sigmoid(torch.randn((B, S, w), generator=g, device=card)
@@ -813,6 +823,33 @@ def test_rglru_scan_backward_kernel(card, B, S, w, dtype):
     before = LAUNCHES["rglru_scan_backward"]
     got = rg.rglru_scan_backward(a, h, dh)
     assert LAUNCHES["rglru_scan_backward"] == before + 1
+    want = ref.rglru_scan_backward(a, h, dh)
+    assert all(x.dtype == dtype and torch.equal(x, y)
+               for x, y in zip(got, want))
+    again = rg.rglru_scan_backward(a, h, dh)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_rglru_scan_backward_kernel_unaligned_base(card, offset, dtype):
+    """a, h and dh that start 1-3 elements past an aligned address
+    (contiguous views into larger buffers) take 4-byte copies or element
+    loads, and the gradients still match bit for bit."""
+    from repro_torch.kernels import rglru_scan as rg
+    B, S, w = 2, 300, 64
+    g = torch.Generator(device=card).manual_seed(offset + 7)
+    n = B * S * w
+
+    def view(x):
+        return x.to(dtype)[offset:].view(B, S, w)
+
+    a = view(torch.sigmoid(torch.randn(n + offset, generator=g,
+                                       device=card)))
+    h, dh = (view(torch.randn(n + offset, generator=g, device=card))
+             for _ in range(2))
+    assert a.is_contiguous() and a.data_ptr() % 16 != 0
+    got = rg.rglru_scan_backward(a, h, dh)
     want = ref.rglru_scan_backward(a, h, dh)
     assert all(x.dtype == dtype and torch.equal(x, y)
                for x, y in zip(got, want))

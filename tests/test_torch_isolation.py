@@ -52,7 +52,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         assert m in mods, m
     examples = [str(p) for p in EXAMPLES]
     assert [p.name for p in EXAMPLES] == [
-        "torch_cpr_tradeoff.py", "torch_quickstart.py",
+        "torch_cpr_tradeoff.py", "torch_quickstart.py", "torch_serve.py",
         "torch_train_lm_with_cpr.py"], examples
     code = (
         "import importlib, importlib.util, sys\n"
