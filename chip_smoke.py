@@ -55,7 +55,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    the JAX reference by the tests) from the same parameters gives the same
    PLS, overhead charges, bytes written and delta counts, and an AUC
    within 5e-3 — on the flat store, and through the fleet over the pipe
-   and the socket transports (the card hashes with the kernel, the CPU
+   and the socket transports (``AGREE_SHARDS`` shards, 20 steps of 256
+   samples; the card hashes with the kernel, the CPU
    with the host ledger); the fleet's writer alone on the card and on the
    CPU gives the same images, in-place restores, bytes and delta counts
    after a ``save_full`` and a delta ``save_rows``.  A ``cpr-mfu`` run
@@ -69,7 +70,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 5. The port's benchmark harness (``benchmarks_torch``) on the card:
    (a) fig7's Kaggle rows at full Criteo-Kaggle width (33,762,577 rows,
    the published config), all six modes with the kernel tracker backend,
-   steps cut to phase 3's 35; each row with its launches by kernel
+   steps cut to phase 3's STEPS_FLAT; each row with its launches by kernel
    (``embedding_bag`` both ways in every mode, ``tracker_select`` in
    ``cpr-mfu``, ``ssu_dedupe_evict`` in ``cpr-ssu``; none may be 0) and a
    load charge below full recovery's in the partial-recovery modes; (b)
@@ -80,11 +81,13 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    set from ``python -m benchmarks_torch.fig7_spread``); (c) ``table1``
    and ``fig14`` at ``--fast`` size (``fig14``'s selection must launch
    ``tracker_select`` and equal the plain version, and its engines' bytes
-   agree); (d) the four ``examples/torch_*.py`` as processes on the
-   card, each exiting 0 with its summary lines (the LM example at 20
+   agree); (d) the five ``examples/torch_*.py`` as processes on the
+   card, started together, each exiting 0 with its summary lines (the LM example at 10
    steps: its f32 attention runs the f32 kernels both ways; the serving
-   example decodes 512 tokens of the reduced gemma2-2b).  Rows print with the card's
-   ``nvidia-smi`` name and power limit.
+   example decodes 512 tokens of the reduced gemma2-2b; the MoE expert
+   example trains the reduced qwen3-moe 30 steps, the f32 kernels both
+   ways, 60 launches each).  Rows print with the card's ``nvidia-smi``
+   name and power limit.
 6. The fleet figures (``benchmarks_torch`` fig15-17) on the card, the
    trainer's tables on the device: (a) fig15 at the published Kaggle
    width (33,762,577 rows, d = 16, 2.30 GB of tables and accumulators),
@@ -112,9 +115,11 @@ freed first):
 2b. ``flash_attention`` and ``rglru_scan`` against their plain versions at
    the path's shapes: (2, 10, 4096, 256) bf16 queries over (2, 1, 4096,
    256) keys with window 2048, gemma2's (1, 8, 4096, 256) over (1, 4,
-   4096, 256) global with softcap 50, the reduced f32 case, and phase 4b's
+   4096, 256) global with softcap 50, the reduced f32 case, phase 4b's
    f32 prefill shape (2, 10, 2176, 256) over (2, 1, 2176, 256) (the f32
-   3xTF32 kernel at full width, beside f32 SDPA with TF32 off); the scan at
+   3xTF32 kernel at full width, beside f32 SDPA with TF32 off), and phase
+   3m's bf16 (2, 16, 4096, 128) causal MHA (qwen2-moe-a2.7b's layers),
+   each with its own device time (profiler); the scan at
    (2, 4096, 2560) f32 and bf16 (bit for bit), with its own device time
    (profiler) and, as a yardstick, one ``torch.add`` over the same
    tensors, which moves the same bytes.  bf16 attention outputs
@@ -168,6 +173,34 @@ freed first):
    same ``forward`` logits within 1e-4 and identical greedy ``serve()``
    completions.
 
+The MoE serving path (Qwen1.5-MoE-A2.7B at full width, the RecurrentGemma
+parameters freed first):
+
+3m. The main path: ``qwen2-moe-a2.7b`` parameters (f32, 57.26 GB:
+   ``param_counts()``'s 14,315,732,992 and the final norm and shared-expert
+   gates it leaves out, 14,315,784,192 as in the reference's tree) drawn
+   on the card, one prefill ``forward`` over (2, 4096)
+   tokens in bf16 (each MoE layer's capacity and dropped assignments
+   probed beside it: C = 682 for T = 8,192, k = 4, E = 60), then
+   ``serve()`` answers 8 requests (prompts up to 64 tokens, batch 4, 32
+   generated).  Counts are reset before the forward and read after
+   ``serve()``: ``flash_attention`` must have launched 24 times (one per
+   layer in the prefill; decode attends with the plain ``_sdpa``, as the
+   reference does).  Then the prefill's time (the median of
+   ``MOE_PREFILL_REPS`` forwards), the ms per decode step at batch 4 and
+   the peak memory.
+4m. (a) At full width in f32, with the capacity factor E / k (the prefill,
+   like decode, drops nothing), prefill and decode teacher-forced over the
+   same 256 tokens, every MoE layer's routes probed on both paths: a route
+   may differ only within ``ROUTE_TIE`` of a tie between the k-th and
+   (k+1)-th router probabilities (every flip printed with its gap), and the
+   logits agree within 1e-4 of the largest at every position before the
+   first flipped token (a position depends only on the tokens up to it).
+   (b) The reduced qwen2-moe and qwen3-moe on the card and the CPU from the
+   same parameters: ``forward`` logits within 1e-4 of the largest and
+   identical greedy ``serve()`` completions.  The MoE parameters are
+   freed before phase 7 (its peak is 60.75 GB).
+
 LM training with CPR over the token rows (RecurrentGemma-2B):
 
 7. (a) The main path: ``launch.train.train`` at full width and depth
@@ -182,19 +215,35 @@ LM training with CPR over the token rows (RecurrentGemma-2B):
    after step 0, partial restores in the priority modes; the steady step
    ms (median of steps 2..), peak memory, save-blocked seconds and the
    report's policy fields print.  (b) One pattern period (RG-LRU, RG-LRU,
-   local attention) at full width in f32 over (1, 2,176) tokens, the same
+   local attention) at full width in f32 over (1, 1,088) tokens, the same
    parameters on the card and the CPU: ``lm_loss`` within 1e-5 relative,
    every gradient leaf within ``GRAD_AGREE`` of its largest entry.  (c)
    The reduced config trained on the card and the CPU from the same
    parameters: identical policy fields, step 0's loss within 1e-5 and
    every loss within ``TRAIN_AGREE`` (its comment says why).
 
-Phases run in the order 1, 2, 3, 4, 2b, 2c, 5, 6, 3b, 4b, 7.  The script
+Depth cut when phases 3m and 4m arrived, so that the last phase ends by
+1,000 s of the 1,200 s limit (PERF.md section 4 gives the runs): uncut
+the script ended its last phase at 1,040.9 s; a first round of cuts took
+it to 937.3 s on that kind of host and 1,242.1 s on a slower one, so a
+second round followed.  First round: phase 7's ``TRAIN_STEPS`` 6 -> 4
+(20.9 s saved), phase 4's scaled runs 8,000 -> 5,120 samples (19.6 s),
+phase 2b's plain versions timed over 5 calls, not 25 (10.2 s), the LM
+example 20 -> 10 steps (7.7 s), ``STEPS_FLAT``/``STEPS_FLEET`` and phase
+5 (a) 35 -> 25 steps a mode (about 10 s).  Second round: phase 4's fleets
+8 -> ``AGREE_SHARDS`` shards (16.6 s), 7 (b) over ``PERIOD_SEQ`` tokens,
+not ``AGREE_SEQ`` (16.6 s): 916.6 s, and 873.5 s and 1,200.9 s on two
+more hosts.  Then phase 5 (d)'s examples were started together rather than
+one after another (91.3 -> 44.6 s: 46.7 s saved): 867.9 s.  No check was
+dropped.
+
+Phases run in the order 1, 2, 3, 4, 2b, 2c, 5, 6, 3b, 4b, 3m, 4m, 7.  The script
 prints its time after every phase.  The last two lines are
 ``{"kernels": [...]}`` and ``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -218,9 +267,15 @@ TF32_OPS_PER_S = 495e12        # H100 SXM TF32 tensor cores, dense
 F32_TC_OPS_PER_S = TF32_OPS_PER_S / 3
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 N_BIG, D, B = 10_131_227, 16, 512
-STEPS_FLAT = 35
-STEPS_FLEET = 35
+# phase 3's steps a mode (and phase 5 (a)'s): cut from 35 with the MoE
+# serving phases' arrival (PERF.md section 4)
+STEPS_FLAT = 25
+STEPS_FLEET = 25
 N_RAGGED = 1_000_003                  # rows of the d = 9 row_hash case
+# phase 4's fleets (flat, pipe, socket, the disk round trip): 2 shards, as
+# phase 6's process fleets (cut from 8: each pipe writer or socket server
+# is a process that takes seconds to start on the card's host)
+AGREE_SHARDS = 2
 FLEET = {"sharded_save": True, "delta_saves": True, "hash_backend": "kernel",
          "transport": "inproc"}
 # the LM serving path (phases 2b-4b): RecurrentGemma-2B at full width; the
@@ -241,7 +296,10 @@ FLASH_CASES = (
     # phase 4b's f32 prefill: the 3xTF32 kernel at full width (the card
     # tests' f32 limit)
     ("recurrentgemma-2b f32 (phase 4b)", (2, 10, 1, AGREE_SEQ, 256),
-     torch.float32, 2048, 0.0, (2e-5, 2e-5)))
+     torch.float32, 2048, 0.0, (2e-5, 2e-5)),
+    # phase 3m's prefill: every layer of qwen2-moe-a2.7b, head dim 128, MHA
+    ("qwen2-moe-a2.7b prefill", (2, 16, 16, 4096, 128), torch.bfloat16, 0,
+     0.0, (1e-2, 4e-3)))
 KEY_TILE = 64                # keys per tile of csrc/flash_attention_bf16.cu
 # phase 2c: the backward kernels.  Attention cases: name, (B, Hq, Hkv, S,
 # hd), dtype, window, softcap; the first is the training path's own.  The
@@ -273,13 +331,19 @@ BWD_SCAN_RAGGED = ((2, 1000, 2555), (8, 1000, 2555))
 # phase 7: training RecurrentGemma-2B at full width (batch 8 x 512 tokens,
 # 2 failures of 25 % of 8 shards); steps a mode, and steps 2.. are steady
 TRAIN_SHAPE = (8, 512)
-TRAIN_STEPS = 6              # cut from 12: the time limit (PERF.md section 4)
+# cut from 12, then 6: the time limit (PERF.md section 4)
+TRAIN_STEPS = 4
 # 7 (b): one pattern period (RG-LRU, RG-LRU, local attention) at full width
-# in f32 over AGREE_SEQ tokens, card against CPU.  The loss within 1e-5
+# in f32 over PERIOD_SEQ tokens, card against CPU (cut from AGREE_SEQ for
+# the time limit: its cost, mostly the CPU's 256,000-word cross-entropy,
+# is linear in the tokens; the window no longer bites here, and phase 2c
+# holds the f32 backward at AGREE_SEQ with the window biting against its
+# plain version).  The loss within 1e-5
 # relative, each gradient leaf within GRAD_AGREE of its largest entry: f32
 # sums over 2,560-wide rows and a 256,000-word vocabulary in another order
 # (cuBLAS and the kernels against the CPU's BLAS and plain versions)
 GRAD_AGREE = 1e-4
+PERIOD_SEQ = 1088
 # 7 (c): the reduced config trained on the card and the CPU.  Step 0's
 # loss (no update yet) within 1e-5 relative; every step's within
 # TRAIN_AGREE.  Traced step by step (``python -m
@@ -289,6 +353,17 @@ GRAD_AGREE = 1e-4
 # 1e-5 of their size at every step 4.4e-5
 TRAIN_AGREE = 1e-4
 SCAN_SHAPE = (2, 4096, 2560)  # the RG-LRU layers' (B, S, width) at prefill
+# the MoE serving path (phases 3m-4m): Qwen1.5-MoE-A2.7B at full width
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_PREFILL_SHAPE = (2, 4096)
+MOE_PREFILL_REPS = 3         # the prefill's time: the median of this many
+# 4m (a): prefill against decode over MOE_AGREE_SEQ tokens in f32.  A route
+# may differ between the two only where the k-th and (k+1)-th router
+# probabilities lie within ROUTE_TIE of each other (f32 sums in another
+# order on the two paths); logits agree within 1e-4 of the largest before
+# the first token whose route flipped
+MOE_AGREE_SEQ = 256
+ROUTE_TIE = 1e-5
 SCRATCH = Path(__file__).resolve().parent / "build" / "chip_smoke"
 # phase 5: the benchmark harness.  fig7's policy fields must be equal on the
 # card and the CPU.  At the harness's size (70 steps) the trained model
@@ -304,17 +379,24 @@ FIG7_AUC_GAP = 3e-2       # measured up to 1.33e-2; untrained 0.34 away
 FIG7_LOGLOSS_GAP = 0.2    # measured up to 5.13e-2; untrained 0.23 away
 # example -> (a summary line, how many it prints, its arguments); the LM
 # example trains its f32 model (the f32 attention kernels, both ways) for
-# 20 steps instead of 200 (the time limit: 50 steps took 42.6 s on the
-# card, a dozen compressed persists of the whole trainer tree among them)
+# 10 steps instead of 200 (the time limit: 50 steps took 42.6 s on the
+# card, a dozen compressed persists of the whole trainer tree among them;
+# cut from 20 with the MoE serving phases' arrival)
 EXAMPLE_LINES = {
     "torch_quickstart.py": (r"^\s*(full|cpr-mfu) auc=0\.\d{4} pls=", 2, ()),
     "torch_cpr_tradeoff.py": (r"^  PLS=\S+\s+auc=0\.\d{4} overhead=", 3,
                               ()),
     "torch_train_lm_with_cpr.py": (r"^mode=cpr-mfu effective=cpr-mfu pls=", 1,
-                                   ("--steps", "20")),
+                                   ("--steps", "10")),
     # the reduced gemma2-2b decoding 8 x 64 tokens after 32 prompt steps
     "torch_serve.py": (r"^decode: 512 tokens in \d+\.\d+s -> [\d.]+ tok/s ",
-                       1, ())}
+                       1, ()),
+    # the reduced qwen3-moe (f32, head dim 64, 2 layers) trained 30 steps
+    # with Adam: the f32 attention kernels both ways, 2 launches a step each
+    "torch_moe_expert_cpr.py": (
+        r"^(  CPR-MFU would partial-save experts \[\d, \d\] \(r=0\.5 -> 2 "
+        r"of 4\)|kernel launches: \{'flash_attention': 60, "
+        r"'flash_attention_backward': 60\})$", 2, ())}
 PROBE_ENV = "CHIP_SMOKE_WRITER_PROBE_DIR"
 # phase 6: the fleet figures.  Audit fields that must be true in every row
 # that has them; the disk and host memory the full-width fig15 needs (two
@@ -1077,7 +1159,9 @@ def phase_agreement(dev):
     from repro_torch.data.synthetic import ClickLogDataset
     from repro_torch.models.dlrm import init_dlrm, params_to_numpy
     cfg = scaled(DLRM_KAGGLE, 2000)
-    ds = ClickLogDataset(cfg.table_sizes, num_samples=8000, seed=3)
+    # 20 steps of 256 (cut from 8,000 samples with the MoE serving phases'
+    # arrival: the time limit)
+    ds = ClickLogDataset(cfg.table_sizes, num_samples=5120, seed=3)
     init = params_to_numpy(init_dlrm(
         cfg, torch.Generator().manual_seed(0), "cpu"))
     shutil.rmtree(SCRATCH, ignore_errors=True)
@@ -1086,7 +1170,7 @@ def phase_agreement(dev):
     transport._pipe_worker_main = _pipe_writer_probe
 
     def run(device, **kw):
-        p = SystemParams()
+        p = SystemParams(N_emb=AGREE_SHARDS)
         mgr = CPRManager("cpr-mfu", p, cfg.table_sizes, target_pls=0.1,
                          tracker_backend="kernel", device=device, **kw)
         inj = FailureInjector(2, 0.25, p.N_emb, p.T_total, seed=11)
@@ -1155,7 +1239,7 @@ def phase_agreement(dev):
     # a disk directory through pipe: the reload equals the writers' image
     # at their final fence, byte for byte
     root = str(SCRATCH / "ckpt")
-    p = SystemParams()
+    p = SystemParams(N_emb=AGREE_SHARDS)
     mgr = CPRManager("cpr-mfu", p, cfg.table_sizes, target_pls=0.1,
                      tracker_backend="kernel", device=dev, directory=root,
                      transport="pipe", hash_backend="kernel", **fleet)
@@ -1412,24 +1496,53 @@ def phase_harness(dev, kernels, cfg):
             fail("fig14: the card's segment-wise selection did not run "
                  "through tracker_select or disagrees with its plain version")
 
-    # (d) the examples, each a process of its own on the card
+    # (d) the examples
+    run_examples()
+
+
+def run_examples():
+    """Phase 5 (d): the examples, each a process of its own on the card,
+    all started together: a process's time is mostly its start and set-up
+    (one after another the five took 91.3 s, PERF.md section 4).  Output
+    goes to files, read once every process has ended; none outlives the
+    call."""
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
-    for script, (mark, n_lines, args) in EXAMPLE_LINES.items():
-        t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, str(root / "examples" / script),
-                            *args], env=env, capture_output=True, text=True,
-                           timeout=600)
-        print(f"examples/{script} (exit {r.returncode}, "
-              f"{time.perf_counter() - t0:.1f} s):")
-        print("\n".join(f"  {line}" for line in r.stdout.splitlines()))
-        if r.returncode:
-            fail(f"examples/{script} failed: {r.stderr[-2000:]}")
-        summary = [line for line in r.stdout.splitlines()
+    logs = SCRATCH / "examples"
+    shutil.rmtree(logs, ignore_errors=True)
+    logs.mkdir(parents=True)
+    t0 = time.perf_counter()
+    procs, ends = {}, {}
+    try:
+        for script, (_, _, args) in EXAMPLE_LINES.items():
+            with open(logs / f"{script}.out", "w") as out, \
+                    open(logs / f"{script}.err", "w") as err:
+                procs[script] = subprocess.Popen(
+                    [sys.executable, str(root / "examples" / script), *args],
+                    env=env, stdout=out, stderr=err, text=True)
+        for script, proc in procs.items():
+            proc.wait(timeout=max(1.0, 600 - (time.perf_counter() - t0)))
+            ends[script] = time.perf_counter() - t0
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for script, (mark, n_lines, _) in EXAMPLE_LINES.items():
+        stdout = (logs / f"{script}.out").read_text()
+        code = procs[script].returncode
+        print(f"examples/{script} (exit {code}, ended by {ends[script]:.1f} "
+              f"s after the {len(procs)} started):")
+        print("\n".join(f"  {line}" for line in stdout.splitlines()))
+        if code:
+            fail(f"examples/{script} failed: "
+                 f"{(logs / f'{script}.err').read_text()[-2000:]}")
+        summary = [line for line in stdout.splitlines()
                    if re.match(mark, line)]
         if len(summary) != n_lines:
             fail(f"examples/{script} printed {len(summary)} summary lines, "
                  f"not {n_lines}")
+    shutil.rmtree(logs, ignore_errors=True)
 
 
 def band_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
@@ -1494,14 +1607,18 @@ def phase_lm_kernels(dev, ops, ref):
                                                  < (window or S + 1))
             library = time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=band, enable_gqa=True))
-        row = dict(max_abs_err=err, ms=time_ms(kernel), plain_ms=time_ms(plain),
-                   bound_ms=t_b, bound_by=by, library_ms=library)
+        # the plain versions take 10-210 ms a call: 5 calls, as in 2c
+        row = dict(max_abs_err=err, ms=time_ms(kernel),
+                   plain_ms=time_ms(plain, reps=5, warmup=1), bound_ms=t_b,
+                   bound_by=by, library_ms=library)
+        own, _ = device_ms(kernel, "flash_fwd")
         ok = ratio <= 1.0
         print(f"flash_attention {name}: q {tuple(q.shape)} k {tuple(k.shape)} "
               f"{str(dtype)[6:]} window={window} softcap={cap} "
               f"pairs={pairs} max_abs_err={err:.3e} limit |err| <= "
               f"{rtol:g}*|plain| + {atol:g} (largest share of it "
-              f"{ratio:.3f}) ok={ok} ms={row['ms']:.4f} "
+              f"{ratio:.3f}) ok={ok} ms={row['ms']:.4f} kernel device ms="
+              f"{'not measured' if own is None else f'{own:.4f}'} "
               f"plain_ms={row['plain_ms']:.4f} bound_ms={t_b:.5f} ({by}"
               f"{'' if dtype == torch.bfloat16 else ', 3xTF32'}){fma} "
               f"library_ms={library}")
@@ -1526,7 +1643,8 @@ def phase_lm_kernels(dev, ops, ref):
         t_b, by = bound(3 * a.numel() * a.element_size(), ops=2 * a.numel())
         row = dict(max_abs_err=err,
                    ms=time_ms(lambda: ops.rglru_scan(a, b)),
-                   plain_ms=time_ms(lambda: ref.rglru_scan(a, b)),
+                   plain_ms=time_ms(lambda: ref.rglru_scan(a, b), reps=5,
+                                    warmup=1),
                    bound_ms=t_b, bound_by=by, library_ms=None)
         own, _ = device_ms(lambda: ops.rglru_scan(a, b), "rglru_scan_kernel")
         # a yardstick, not the same function: one elementwise pass that
@@ -1702,6 +1820,220 @@ def phase_lm_agreement(dev, params, cfg, small):
           f"requests identical={a == b} ok={ok}")
     if not ok:
         fail("the reduced model on the card disagrees with the CPU path")
+
+
+@contextlib.contextmanager
+def moe_inputs(fn):
+    """While open, every MoE layer that ``models.transformer`` runs first
+    hands its parameters, its input (B, S, d) and its config to ``fn`` (a
+    probe beside the layer's own work, which it leaves unchanged)."""
+    from repro_torch.models import transformer as T
+    inner = T.moe_lib.apply_moe
+
+    def probed(p, x, moe_cfg):
+        fn(p, x, moe_cfg)
+        return inner(p, x, moe_cfg)
+
+    T.moe_lib.apply_moe = probed
+    try:
+        yield
+    finally:
+        T.moe_lib.apply_moe = inner
+
+
+@torch.no_grad()
+def phase_moe_serving(dev, kernels, cfg):
+    """The MoE serving path at full width (phase 3m): one prefill
+    ``forward`` over ``MOE_PREFILL_SHAPE`` tokens (each MoE layer's
+    capacity and dropped assignments probed beside it), then ``serve()``
+    answers 8 requests; then the prefill's time over more forwards."""
+    from repro_torch.launch.serve import make_requests, serve
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    arch = cfg.name
+    t0 = time.perf_counter()
+    params = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = T.param_count(params)
+    print(f"{arch}: {n_params:,} parameters, f32 ({n_params * 4 / 1e9:.2f} "
+          f"GB) on the card, {cfg.dtype} activations "
+          f"({time.perf_counter() - t0:.1f} s to draw)")
+    # ``param_counts()`` (the reference's) leaves out the final norm and
+    # each layer's shared-expert gate, d values each; the trees of both
+    # packages hold them
+    want = cfg.param_counts()["total"] + cfg.d_model * (1 + cfg.num_layers)
+    if n_params != want:
+        fail(f"{arch} drew {n_params:,} parameters, not {want:,} (the "
+             f"config's {cfg.param_counts()['total']:,} and the norm and "
+             f"gates it leaves out)")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, MOE_PREFILL_SHAPE, generator=gen,
+                         device=dev)
+    T.forward(params, {"tokens": toks[:, :256]}, cfg)      # warm-up
+    reqs = make_requests(8, 64, cfg.vocab_size, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plans = []
+
+    def count_drops(p, x, m):
+        B, S, d = x.shape
+        C = M.expert_capacity(m, B * S, S)
+        _, slot = M.dispatch(M.route(p, x.reshape(B * S, d), m)[2], C,
+                             m.num_experts)
+        plans.append((C, (slot == m.num_experts * C).sum()))
+
+    kernels.reset_launches()
+    with moe_inputs(count_drops):
+        logits, _ = T.forward(params, {"tokens": toks}, cfg)
+    finite = bool(torch.isfinite(logits).all())
+    shape = tuple(logits.shape)
+    del logits
+    done, stats = serve(cfg, reqs, batch=4, gen=32, params=params, device=dev)
+    counts = dict(kernels.LAUNCHES)
+
+    def prefill():
+        t0 = time.perf_counter()
+        T.forward(params, {"tokens": toks}, cfg)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    times = [prefill() for _ in range(MOE_PREFILL_REPS)]
+    prefill_s = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated()
+    n_tok = MOE_PREFILL_SHAPE[0] * MOE_PREFILL_SHAPE[1]
+    m = cfg.moe
+    caps = sorted({C for C, _ in plans})
+    dropped = [int(n) for _, n in plans]
+    print(f"prefill {arch} {MOE_PREFILL_SHAPE}: median of "
+          f"{MOE_PREFILL_REPS} forwards {prefill_s * 1e3:.1f} ms (each: "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)}), "
+          f"{n_tok / prefill_s:.0f} tokens/s, logits {shape} finite="
+          f"{finite}, peak memory {peak / 1e9:.2f} GB")
+    print(f"MoE dispatch at the prefill: T = {n_tok}, k = {m.top_k}, E = "
+          f"{m.num_experts}, capacity {caps} per expert, dropped "
+          f"assignments by layer {dropped} (of {n_tok * m.top_k} each; "
+          f"{sum(dropped)} in all)")
+    print(f"serve {arch}: {len(done)} requests (prompts "
+          f"{min(map(len, reqs))}..{max(map(len, reqs))} tokens), batch 4, "
+          f"gen 32: {stats['tokens']} tokens in {stats['wall_s']:.2f} s -> "
+          f"{stats['tok_per_s']:.1f} tokens/s, "
+          f"{stats['wall_s'] / stats['steps'] * 1e3:.2f} ms per decode step "
+          f"at batch 4 ({stats['steps']} steps, {stats['refills']} refills; "
+          f"f32 state, {cfg.dtype} activations)")
+    print(f"launches (prefill + serve): {json.dumps(counts)}")
+    if shape != (*MOE_PREFILL_SHAPE, cfg.vocab_size) or not finite:
+        fail("the MoE prefill's logits have the wrong shape or are not "
+             "finite")
+    if len(plans) != cfg.num_layers or caps != [
+            M.expert_capacity(m, n_tok, MOE_PREFILL_SHAPE[1])]:
+        fail(f"the MoE prefill ran {len(plans)} MoE layers at capacities "
+             f"{caps}")
+    if sorted(done) != list(range(8)) or any(
+            len(c) != 32 or not all(0 <= t < cfg.vocab_size for t in c)
+            for c in done.values()):
+        fail("serve() did not answer every request with 32 tokens")
+    if counts["flash_attention"] != cfg.num_layers:
+        fail(f"flash_attention launched {counts['flash_attention']} times "
+             f"in the MoE serving path, not {cfg.num_layers}")
+    return params, counts
+
+
+@torch.no_grad()
+def phase_moe_agreement(dev, params, cfg):
+    """(a) Prefill against decode at full width in f32 over MOE_AGREE_SEQ
+    tokens, at a capacity that drops nothing, every MoE layer's routes
+    probed on both paths; (b) the reduced qwen2-moe and qwen3-moe on the
+    card against the CPU (phase 4m)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests, serve
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    m = cfg.moe
+    k = m.top_k
+    cfg = dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / k))
+    S, L = MOE_AGREE_SEQ, cfg.num_layers
+    if M.expert_capacity(cfg.moe, S, S) < S:
+        fail("4m (a): the prefill's capacity would drop assignments")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (1, S), generator=gen, device=dev)
+    routes = []
+
+    def record(p, x, moe_cfg):
+        probs, _, top_e = M.route(p, x.reshape(-1, x.shape[-1]), moe_cfg)
+        routes.append((probs, top_e))
+
+    t0 = time.perf_counter()
+    with moe_inputs(record):
+        full, _ = T.forward(params, {"tokens": toks}, cfg)
+        pre_p = torch.stack([p for p, _ in routes])          # (L, S, E)
+        pre_e = torch.stack([e for _, e in routes])          # (L, S, k)
+        routes.clear()
+        state = T.init_decode_state(cfg, 1, S, torch.float32, dev)
+        dec = torch.stack([T.decode_step(params, state, toks[:, i], i,
+                                         cfg)[0][0] for i in range(S)])
+    # decode's probes come in step-major order: (S, L) -> (L, S)
+    dec_p = torch.stack([p[0] for p, _ in routes]).reshape(S, L, -1)
+    dec_e = torch.stack([e[0] for _, e in routes]).reshape(S, L, k)
+    dec_p, dec_e = dec_p.transpose(0, 1), dec_e.transpose(0, 1)
+    flipped = ~(pre_e.sort(-1).values == dec_e.sort(-1).values).all(-1)
+
+    def gap(p):             # the k-th probability less the (k+1)-th
+        top = p.sort(-1, descending=True).values
+        return top[..., k - 1] - top[..., k]
+
+    flips = flipped.nonzero().tolist()
+    first = min((pos for _, pos in flips), default=S)
+    scale = full[0].abs().max().item()
+    err = ((full[0, :first] - dec[:first]).abs().max().item()
+           if first else float("inf"))
+    gaps = [(layer, pos, gap(pre_p[layer, pos]).item(),
+             gap(dec_p[layer, pos]).item()) for layer, pos in flips]
+    for layer, pos, g_pre, g_dec in gaps:
+        print(f"  route flip: layer {layer}, token {pos}: prefill experts "
+              f"{sorted(pre_e[layer, pos].tolist())}, decode "
+              f"{sorted(dec_e[layer, pos].tolist())}; k-th - (k+1)-th "
+              f"probability gap {g_pre:.3e} (prefill), {g_dec:.3e} (decode)")
+    ties_ok = all(g <= ROUTE_TIE for _, _, g, _ in gaps)
+    ok = ties_ok and err <= 1e-4 * scale
+    print(f"prefill vs decode ({cfg.name}, f32, capacity factor "
+          f"{cfg.moe.capacity_factor:g}, (1, {S}) tokens): {len(flips)} "
+          f"route flips of {L * S} (layer, token) routes (each within "
+          f"{ROUTE_TIE:g} of a tie: {ties_ok}); smallest prefill gap "
+          f"{gap(pre_p).min().item():.3e}; max_abs_err={err:.3e} over the "
+          f"{first} positions before the first flip, max |logit|="
+          f"{scale:.4f}, tol=1e-4*max|logit| ok={ok} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if not ok:
+        fail("the MoE prefill and decode disagree at full width")
+    del full, state, dec, routes
+    torch.cuda.empty_cache()
+
+    for arch in ("qwen2-moe-a2.7b", "qwen3-moe-30b-a3b"):
+        small = get_config(arch).reduced()
+        cpu = T.init_model(small, torch.Generator().manual_seed(0), "cpu")
+        card = tree_map(lambda t: t.to(dev), cpu)
+        toks = torch.from_numpy(np.random.default_rng(0).integers(
+            0, small.vocab_size, (2, 128)))
+        got, _ = T.forward(card, {"tokens": toks.to(dev)}, small)
+        want, _ = T.forward(cpu, {"tokens": toks}, small)
+        err = (got.cpu() - want).abs().max().item()
+        scale = want.abs().max().item()
+        reqs = make_requests(8, 24, small.vocab_size, seed=0)
+        a, _ = serve(small, reqs, batch=4, gen=16, params=card, device=dev)
+        b, _ = serve(small, reqs, batch=4, gen=16, params=cpu, device="cpu")
+        # f32 sums in another order on the card (cuBLAS, the kernels)
+        ok = err <= 1e-4 * scale and a == b
+        print(f"agreement ({small.name}, f32): card vs CPU forward "
+              f"max_abs_err={err:.3e} tol=1e-4*max|logit| ({scale:.4f}); "
+              f"serve() greedy completions of 8 requests identical={a == b} "
+              f"ok={ok}")
+        if not ok:
+            fail(f"the reduced {arch} on the card disagrees with the CPU "
+                 f"path")
 
 
 def bwd_excess(got, want, rtol, atol):
@@ -2011,7 +2343,7 @@ def phase_training(dev, kernels, cfg):
                               dtype="float32")
     cpu = T.init_model(one, torch.Generator().manual_seed(0), "cpu")
     toks = torch.from_numpy(np.random.default_rng(7).integers(
-        0, one.vocab_size, (1, AGREE_SEQ)))
+        0, one.vocab_size, (1, PERIOD_SEQ)))
     out = {}
     before = dict(kernels.LAUNCHES)
     for d in (dev, "cpu"):
@@ -2030,7 +2362,7 @@ def phase_training(dev, kernels, cfg):
               for a, b in zip(gg, gc)]
     ok = abs(lg - lc) <= 1e-5 * abs(lc) and max(shares) <= GRAD_AGREE
     print(f"gradients at full width ({one.name}, {one.num_layers} layers "
-          f"{one.block_pattern}, f32, (1, {AGREE_SEQ}) tokens): loss card "
+          f"{one.block_pattern}, f32, (1, {PERIOD_SEQ}) tokens): loss card "
           f"{lg:.6f} cpu {lc:.6f} (tol 1e-5 relative); {len(gg)} leaves, "
           f"largest |card - cpu| / max|cpu| {max(shares):.3e} (limit "
           f"{GRAD_AGREE:g}; by leaf {', '.join(f'{x:.1e}' for x in shares)}) "
@@ -2152,11 +2484,18 @@ def main() -> None:
     del params
     torch.cuda.empty_cache()
     phase_done("4b")
+    moe = get_config(MOE_ARCH)
+    params, moe_launches = phase_moe_serving(dev, kernels, moe)
+    phase_done("3m")
+    phase_moe_agreement(dev, params, moe)
+    del params                  # phase 7's peak is 60.75 GB
+    torch.cuda.empty_cache()
+    phase_done("4m")
     train_launches = phase_training(dev, kernels, lm)
     phase_done("7")
-    # launches on the main paths: the DLRM's (phase 3), serving's (3b) and
-    # training's (7 (a)), each counted from 0 around its run
-    for counts in (lm_launches, train_launches):
+    # launches on the main paths: the DLRM's (phase 3), serving's (3b, 3m)
+    # and training's (7 (a)), each counted from 0 around its run
+    for counts in (lm_launches, moe_launches, train_launches):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
 

@@ -1,8 +1,10 @@
 """Model configurations of the port (its own copies of ``repro.configs``).
 
 ``get_config(arch_id)`` / ``list_archs()`` cover the language models the
-port runs so far; the reference's other eight architectures come with
-their slices.  The DLRM configurations live in ``configs.dlrm``.
+port runs so far: the Griffin and Gemma-2 families, the dense Qwen2,
+Qwen2.5 and Phi-3 models and the Qwen MoE models.  The reference's
+xLSTM, Qwen2-VL and HuBERT come with their slices.  The DLRM
+configurations live in ``configs.dlrm``.
 """
 from __future__ import annotations
 
@@ -14,6 +16,11 @@ from repro_torch.configs.base import (INPUT_SHAPES, InputShape, ModelConfig,
 _MODULES = {
     "recurrentgemma-2b": "recurrentgemma_2b",
     "gemma2-2b": "gemma2_2b",
+    "phi3-medium-14b": "phi3_medium_14b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "qwen2-7b": "qwen2_7b",
+    "qwen2.5-14b": "qwen2_5_14b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
 }
 
 

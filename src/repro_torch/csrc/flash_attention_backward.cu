@@ -83,6 +83,13 @@ constexpr int kThreadsKV = 64 * kPairs;
 constexpr int kQT = 64;            // query rows of a dQ tile
 constexpr int kThreadsQ = 256;     // 4 pairs of 16 rows
 constexpr int kBK = 16;            // keys of a dQ key tile
+// the most steps of a dK/dV run.  A run's error grows with its length
+// (the tensor cores' f32 accumulation is not rounded to nearest, so each
+// mma3 biases dK and dV by up to an ulp of the accumulator): against an
+// f64 backward, runs of ~2,000 steps read 1.85 times the f32 limit at
+// (1, 32:4, 4096, 128), runs of ~130 steps 0.12.  The runs' partials are
+// summed in f32 by (c).
+constexpr int kMaxRun = 64;
 
 // element strides of (batch, head, seq) of q, k, v, o, do, dq, dk, dv; hd
 // is contiguous
@@ -610,9 +617,10 @@ Plan make_plan(int B, int Hq, int Hkv, int Sq, int Skv, int hd, int causal,
   // last wave of a few CTAs costs a full one) times the longest run plus
   // two steps for a CTA's own K/V loads and stores, plus two more for the
   // sum's launch when a tile is split; ties to the longer run.  Runs from
-  // a quarter of a step a CTA up to 4 times that.
-  const int lo = imax(2, (int)((total + 4LL * n_sm - 1) / (4LL * n_sm)));
-  const int hi = imax(lo, imin(longest, 4 * lo));
+  // a quarter of a step a CTA up to 4 times that, and at most kMaxRun.
+  int lo = imax(2, (int)((total + 4LL * n_sm - 1) / (4LL * n_sm)));
+  const int hi = imin(kMaxRun, imax(lo, imin(longest, 4 * lo)));
+  lo = imin(lo, hi);
   long long best = -1;
   for (int c = lo; c <= hi; ++c) {
     int n = 0;

@@ -1,15 +1,18 @@
 """Where the full-width serving path spends its device time.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        [--arch qwen2-moe-a2.7b]
 
-Draws the full-width model as ``chip_smoke.py`` phase 3b does (f32
+Draws the full-width model (``ARCH`` unless ``--arch``) as
+``chip_smoke.py`` phases 3b and 3m do (f32
 parameters from a seeded generator, ``cfg.dtype`` activations), warms up,
 then profiles with ``torch.profiler`` (CPU and CUDA activities): one
 prefill ``forward`` over ``PREFILL_SHAPE`` tokens, and ``DECODE_STEPS``
 decode steps at ``DECODE_BATCH`` on an f32 decode state (as ``serve``
 holds it) sized for ``PREFILL_SHAPE[1]`` tokens, so each local layer's
 ring holds the full window and every step attends all of it: the work of
-a step at any context past the window.  Prints for each the host ms, the
+a step at any context past the window (a global layer's cache, as an MoE
+layer's, holds all 4,096 slots).  Prints for each the host ms, the
 device busy ms and share, and the device time by kernel name (the top
 15, and the port's own kernels wherever they rank).  Then it times
 ``PREFILL_REPS`` unprofiled prefills (host clock around each, ending in a
@@ -21,6 +24,7 @@ which imports them.
 """
 from __future__ import annotations
 
+import argparse
 import statistics
 import time
 
@@ -29,7 +33,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import resolve_device
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.models import transformer as T
 
 ARCH = "recurrentgemma-2b"
@@ -87,14 +91,17 @@ def _profiled(fn, n, dev):
 
 
 @torch.no_grad()
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=ARCH, choices=list_archs())
+    args = ap.parse_args(argv)
     dev = resolve_device("cuda")
-    cfg = get_config(ARCH)
+    cfg = get_config(args.arch)
     params = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, PREFILL_SHAPE, generator=gen,
                          device=dev)
-    print(f"{torch.cuda.get_device_name(0)}; {ARCH}, "
+    print(f"{torch.cuda.get_device_name(0)}; {cfg.name}, "
           f"{T.param_count(params):,} f32 parameters, {cfg.dtype} "
           f"activations")
 

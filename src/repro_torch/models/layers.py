@@ -8,9 +8,9 @@ versions for CPU ones), so there is no ``use_flash`` switch; the decode step att
 with plain tensor code, as the reference does.
 
 Differences from the reference, each raised rather than run: M-RoPE
-(Qwen2-VL), QKV biases (Qwen) and bidirectional attention (HuBERT) come
-with their slices, and positions must be contiguous (``arange(S)``), the
-flash kernel's contract.
+(Qwen2-VL) and bidirectional attention (HuBERT) come with their slices,
+and positions must be contiguous (``arange(S)``), the flash kernel's
+contract.
 """
 from __future__ import annotations
 
@@ -98,8 +98,6 @@ def contiguous_positions(positions, S: int, device=None):
 def _check_attention_config(cfg):
     if cfg.mrope:
         raise NotImplementedError("M-RoPE (Qwen2-VL) comes with the VLM slice")
-    if cfg.qkv_bias:
-        raise NotImplementedError("QKV biases (Qwen) come with the Qwen slice")
     if not cfg.causal:
         raise NotImplementedError(
             "bidirectional attention (HuBERT) comes with the audio slice")
@@ -109,10 +107,15 @@ def init_attention(generator, cfg, device=None):
     _check_attention_config(cfg)
     d, hd = cfg.d_model, cfg.head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
-    return {"wq": dense_init(generator, (d, nq * hd), device=device),
-            "wk": dense_init(generator, (d, nkv * hd), device=device),
-            "wv": dense_init(generator, (d, nkv * hd), device=device),
-            "wo": dense_init(generator, (nq * hd, d), device=device)}
+    p = {"wq": dense_init(generator, (d, nq * hd), device=device),
+         "wk": dense_init(generator, (d, nkv * hd), device=device),
+         "wv": dense_init(generator, (d, nkv * hd), device=device),
+         "wo": dense_init(generator, (nq * hd, d), device=device)}
+    if cfg.qkv_bias:     # Qwen: zero biases, as the reference starts them
+        for name, n in (("bq", nq), ("bk", nkv), ("bv", nkv)):
+            p[name] = torch.zeros((n * hd,), dtype=torch.float32,
+                                  device=device)
+    return p
 
 
 def _softcap(x, cap):
@@ -120,12 +123,18 @@ def _softcap(x, cap):
 
 
 def _project_qkv(p, x, cfg):
+    """q, k, v in (B, S, heads, hd), the biases (if any) added in x's dtype
+    before the reshape and RoPE (prefill and decode alike)."""
     B, S, _ = x.shape
-    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, nq, hd)
-    k = (x @ p["wk"].to(x.dtype)).reshape(B, S, nkv, hd)
-    v = (x @ p["wv"].to(x.dtype)).reshape(B, S, nkv, hd)
-    return q, k, v
+    out = []
+    for w, b, heads in (("wq", "bq", cfg.num_heads),
+                        ("wk", "bk", cfg.num_kv_heads),
+                        ("wv", "bv", cfg.num_kv_heads)):
+        y = x @ p[w].to(x.dtype)
+        if cfg.qkv_bias:
+            y = y + p[b].to(x.dtype)
+        out.append(y.reshape(B, S, heads, cfg.head_dim))
+    return tuple(out)
 
 
 def _sdpa(q, k, v, mask, softcap=0.0):

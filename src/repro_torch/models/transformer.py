@@ -20,10 +20,13 @@ scan kernels have backward kernels on the card).  Its cross-entropy runs
 in sequence chunks that are recomputed in the backward, and ``remat``
 recomputes each pattern repetition, grouped two-level for deep stacks,
 with ``torch.utils.checkpoint`` where the reference uses
-``jax.checkpoint``.
+``jax.checkpoint``; the MoE layers' aux loss is carried through each
+recomputed span beside the residual stream, summed in the reference's
+order.
 
-The MoE and xLSTM kinds and the audio and vision front ends come with
-later slices and raise here.
+Layer kinds: global and local attention, RG-LRU, and MoE (attention, then
+``models.moe.apply_moe`` on the rmsnorm'd residual).  The xLSTM kinds and
+the audio and vision front ends come with later slices and raise here.
 """
 from __future__ import annotations
 
@@ -36,20 +39,20 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MLSTM, MOE, RECURRENT,
                                       SLSTM, ModelConfig)
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 # one conversion carries any of the reference's parameter trees across
 from repro_torch.tree import params_from_jax  # noqa: F401  (re-export)
 from repro_torch.tree import leaves, tree_map
 
-_LATER = {MOE: "the MoE slice", MLSTM: "the xLSTM slice",
-          SLSTM: "the xLSTM slice"}
+_LATER = {MLSTM: "the xLSTM slice", SLSTM: "the xLSTM slice"}
 
 
 def _check_kind(kind: str):
     if kind in _LATER:
         raise NotImplementedError(f"layer kind {kind!r} comes with "
                                   f"{_LATER[kind]}")
-    if kind not in (ATTN, LOCAL_ATTN, RECURRENT):
+    if kind not in (ATTN, LOCAL_ATTN, RECURRENT, MOE):
         raise ValueError(kind)
 
 
@@ -73,15 +76,28 @@ def init_layer(generator, cfg: ModelConfig, kind: str, device=None):
             generator, cfg.d_model, cfg.rglru_width, cfg.conv1d_width, device)
     else:
         p["attn"] = L.init_attention(generator, cfg, device)
-    if cfg.d_ff:
+    if kind == MOE:     # its norm is rmsnorm whatever the model's
+        p["norm2"] = L.init_norm(cfg.d_model, "rmsnorm", device)
+        p["moe"] = moe_lib.init_moe(generator, cfg.d_model, cfg.moe, device)
+    elif cfg.d_ff:
         p["norm2"] = L.init_norm(cfg.d_model, _norm_kind(cfg), device)
         p["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act,
                               device)
     return p
 
 
-def _stack(trees):
-    return tree_map(lambda *xs: torch.stack(xs), *trees)
+def _stacked(generator, cfg: ModelConfig, kind: str, R: int, device):
+    """R layers of ``kind`` drawn in turn into one stacked tree (leaves
+    (R, ...)): only one layer's draw lives beside the stack, so a stage
+    at full width never needs twice its size."""
+    out = None
+    for r in range(R):
+        layer = init_layer(generator, cfg, kind, device)
+        if out is None:
+            out = tree_map(lambda t: t.new_empty((R,) + t.shape), layer)
+        for dst, src in zip(leaves(out), leaves(layer)):
+            dst[r].copy_(src)
+    return out
 
 
 def init_model(cfg: ModelConfig, generator=None, device=None) -> Dict[str, Any]:
@@ -100,9 +116,8 @@ def init_model(cfg: ModelConfig, generator=None, device=None) -> Dict[str, Any]:
     params: Dict[str, Any] = {
         "embed": L.dense_init(generator, (cfg.vocab_size, cfg.d_model),
                               device=device)}
-    params["stages"] = tuple(
-        _stack([init_layer(generator, cfg, kind, device) for _ in range(R)])
-        for kind in cfg.block_pattern)
+    params["stages"] = tuple(_stacked(generator, cfg, kind, R, device)
+                             for kind in cfg.block_pattern)
     params["rest"] = tuple(init_layer(generator, cfg, kinds[R * P + i], device)
                            for i in range(cfg.num_layers - R * P))
     params["final_norm"] = L.init_norm(cfg.d_model, _norm_kind(cfg), device)
@@ -138,18 +153,28 @@ def _layers(params, cfg: ModelConfig, stages: bool = True):
 # --------------------------------------------------------------------------
 # layer application (full-sequence)
 # --------------------------------------------------------------------------
-def apply_layer(p, x, cfg: ModelConfig, kind: str, positions):
-    """One pre-norm residual layer over the full sequence."""
+def _ffn(p, x, cfg: ModelConfig, kind: str, aux):
+    """The layer's second residual half: ``apply_moe`` (its aux loss added
+    to ``aux``) or the MLP, on the norm'd residual."""
+    if kind == MOE:
+        h, a = moe_lib.apply_moe(p["moe"], L.apply_norm(p["norm2"], x,
+                                                        cfg.norm_eps), cfg.moe)
+        return x + h, aux + a
+    if cfg.d_ff:
+        x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["norm2"], x, cfg.norm_eps))
+    return x, aux
+
+
+def apply_layer(p, x, aux, cfg: ModelConfig, kind: str, positions):
+    """One pre-norm residual layer over the full sequence -> (x, aux + the
+    layer's MoE aux loss)."""
     _check_kind(kind)
     h = L.apply_norm(p["norm1"], x, cfg.norm_eps)
     if kind == RECURRENT:
         h = rglru_lib.rglru_block_forward(p["rglru"], h)
     else:
         h = L.attention_forward(p["attn"], h, cfg, kind, positions)
-    x = x + h
-    if cfg.d_ff:
-        x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["norm2"], x, cfg.norm_eps))
-    return x
+    return _ffn(p, x + h, cfg, kind, aux)
 
 
 def _embed(params, tokens, cfg: ModelConfig):
@@ -194,43 +219,45 @@ def _remat_groups(R: int) -> int:
     return best
 
 
-def _remat_stages(params, x, cfg: ModelConfig, positions):
+def _remat_stages(params, x, aux, cfg: ModelConfig, positions):
     """The R pattern repetitions, each recomputed in the backward (only
-    its input is kept); when ``_remat_groups(R) > 1`` they also run in G
-    recomputed groups, so that only the groups' inputs persist (the
-    reference's two-level scan)."""
+    its inputs, the residual and the running aux loss, are kept); when
+    ``_remat_groups(R) > 1`` they also run in G recomputed groups, so that
+    only the groups' inputs persist (the reference's two-level scan).
+    Returns (x, aux)."""
     R = cfg.num_layers // len(cfg.block_pattern)
 
-    def rep(x, r):
+    def rep(x, aux, r):
         for j, kind in enumerate(cfg.block_pattern):
-            x = apply_layer(_layer(params["stages"][j], r), x, cfg, kind,
-                            positions)
-        return x
+            x, aux = apply_layer(_layer(params["stages"][j], r), x, aux, cfg,
+                                 kind, positions)
+        return x, aux
 
-    def reps(x, lo, hi):
+    def reps(x, aux, lo, hi):
         for r in range(lo, hi):
-            x = checkpoint(rep, x, r, use_reentrant=False)
-        return x
+            x, aux = checkpoint(rep, x, aux, r, use_reentrant=False)
+        return x, aux
 
     G = _remat_groups(R)
     if G == 1:
-        return reps(x, 0, R)
+        return reps(x, aux, 0, R)
     K = R // G
     for grp in range(G):
-        x = checkpoint(reps, x, grp * K, (grp + 1) * K, use_reentrant=False)
-    return x
+        x, aux = checkpoint(reps, x, aux, grp * K, (grp + 1) * K,
+                            use_reentrant=False)
+    return x, aux
 
 
 def forward_hidden(params, batch, cfg: ModelConfig, remat: bool = False):
     """Full-sequence forward up to the final norm'd hidden states -> (h,
-    aux_loss).  The aux loss is the MoE router's, so 0 for every kind the
-    port runs."""
+    aux_loss): the MoE layers' router losses summed in depth order (0
+    without MoE layers)."""
     x, positions = embed_inputs(params, batch, cfg)
-    if remat:
-        x = _remat_stages(params, x, cfg, positions)
-    for p, kind in _layers(params, cfg, stages=not remat):
-        x = apply_layer(p, x, cfg, kind, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if remat:
+        x, aux = _remat_stages(params, x, aux, cfg, positions)
+    for p, kind in _layers(params, cfg, stages=not remat):
+        x, aux = apply_layer(p, x, aux, cfg, kind, positions)
     return L.apply_norm(params["final_norm"], x, cfg.norm_eps), aux
 
 
@@ -297,6 +324,7 @@ def _init_layer_state(cfg, kind, batch, max_len, dtype, device):
     _check_kind(kind)
     if kind == RECURRENT:
         return rglru_lib.init_rglru_state(cfg, batch, dtype, device)
+    # an MoE layer attends globally: a full-length cache
     return L.init_kv_cache(cfg, kind, batch, max_len, dtype, device)
 
 
@@ -326,9 +354,7 @@ def apply_layer_decode(p, x, state, pos: int, cfg: ModelConfig, kind: str):
         h, state = rglru_lib.rglru_block_decode(p["rglru"], h, state)
     else:
         h, state = L.attention_decode(p["attn"], h, state, pos, cfg, kind)
-    x = x + h
-    if cfg.d_ff:
-        x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["norm2"], x, cfg.norm_eps))
+    x, _ = _ffn(p, x + h, cfg, kind, 0.0)
     return x, state
 
 

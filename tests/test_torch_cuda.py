@@ -856,7 +856,9 @@ def test_rglru_scan_backward_kernel_unaligned_base(card, offset, dtype):
 
 
 @pytest.mark.parametrize("arch,changes", [
-    ("recurrentgemma-2b", {}), ("gemma2-2b", {"num_kv_heads": 2})])
+    ("recurrentgemma-2b", {}), ("gemma2-2b", {"num_kv_heads": 2}),
+    ("qwen2-moe-a2.7b", {}), ("qwen3-moe-30b-a3b", {"num_kv_heads": 2}),
+    ("qwen2-7b", {}), ("phi3-medium-14b", {})])
 def test_reduced_lm_loss_gradients_on_the_card_match_the_cpu(card, arch,
                                                               changes):
     """``lm_loss`` and every gradient leaf of the reduced model on the
@@ -895,7 +897,9 @@ def test_reduced_lm_loss_gradients_on_the_card_match_the_cpu(card, arch,
 
 
 @pytest.mark.parametrize("arch,changes", [
-    ("recurrentgemma-2b", {}), ("gemma2-2b", {"num_kv_heads": 2})])
+    ("recurrentgemma-2b", {}), ("gemma2-2b", {"num_kv_heads": 2}),
+    ("qwen2-moe-a2.7b", {}), ("qwen3-moe-30b-a3b", {"num_kv_heads": 2}),
+    ("qwen2-7b", {}), ("phi3-medium-14b", {})])
 def test_reduced_model_on_the_card_matches_the_cpu(card, arch, changes):
     """The same weights on the card (kernels) and on the CPU (plain
     versions, held against JAX by ``tests/test_torch_lm.py``): prefill
@@ -922,3 +926,106 @@ def test_reduced_model_on_the_card_matches_the_cpu(card, arch, changes):
     a, _ = serve(cfg, reqs, batch=2, gen=8, params=gpu, device=card)
     b, _ = serve(cfg, reqs, batch=2, gen=8, params=cpu, device="cpu")
     assert a == b
+
+
+# ------------------------------------------------------- the MoE serving path --
+# the Qwen models' attention: head dim 128, MHA (qwen2-moe, 16:16) and GQA
+# (qwen3-moe, 32:4), causal, at the prefill's 4,096 tokens
+FLASH_HD128_CASES = [
+    # B, Hq, Hkv, Sq, Skv, hd, causal, window, softcap
+    (2, 16, 16, 4096, 4096, 128, True, 0, 0.0),
+    (1, 32, 4, 4096, 4096, 128, True, 0, 0.0),
+]
+
+
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 2e-5, 2e-5),
+                                             (torch.bfloat16, 1e-2, 4e-3)],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,hd,causal,window,softcap",
+                         FLASH_HD128_CASES)
+def test_flash_attention_qwen_shapes(card, B, Hq, Hkv, Sq, Skv, hd, causal,
+                                     window, softcap, dtype, rtol, atol):
+    """The forward at the Qwen models' prefill shapes, at the limits of
+    ``test_flash_attention_kernel``."""
+    test_flash_attention_kernel(card, B, Hq, Hkv, Sq, Skv, hd, causal,
+                                window, softcap, dtype, rtol, atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,hd,causal,window,softcap",
+                         FLASH_HD128_CASES)
+def test_flash_attention_backward_qwen_shapes(card, B, Hq, Hkv, Sq, Skv, hd,
+                                              causal, window, softcap, dtype):
+    """The backward at the same shapes, within ``BWD_TOL``, two calls
+    equal."""
+    test_flash_attention_backward_kernel(card, B, Hq, Hkv, Sq, Skv, hd,
+                                         causal, window, softcap, dtype)
+
+
+def _moe_on(device, arch, dtype, T, capacity_factor, reduced=True):
+    """(moe params, moe config, x (2, T / 2, d) drawn with an offset, so
+    that the router prefers some experts) of ``arch``'s MoE layer, reduced
+    or at full width, on ``device``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    from repro_torch.tree import tree_map
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    m = dataclasses.replace(cfg.moe, capacity_factor=capacity_factor)
+    g = torch.Generator().manual_seed(T)
+    params = M.init_moe(g, cfg.d_model, m)
+    x = torch.randn((2, T // 2, cfg.d_model), generator=g) + 0.5
+    return (tree_map(lambda t: t.to(device), params), m,
+            x.to(device).to(dtype))
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("capacity_factor", [4.0, 1.25])
+def test_apply_moe_on_the_card_matches_the_cpu(card, arch, capacity_factor):
+    """The reduced MoE layer (f32) on the card against the CPU path (held
+    against the reference by ``tests/test_torch_moe.py``): the same kept
+    assignments, the output within 1e-5 of its largest entry, the aux
+    within 1e-6 relative; two calls on the card give equal outputs."""
+    from repro_torch.models import moe as M
+    from repro_torch.tree import tree_map
+    p, m, x = _moe_on(card, arch, torch.float32, 256, capacity_factor)
+    cpu = tree_map(lambda t: t.cpu(), p)
+    got, aux = M.apply_moe(p, x, m)
+    again, aux2 = M.apply_moe(p, x, m)
+    assert torch.equal(got, again) and torch.equal(aux, aux2)
+    want, want_aux = M.apply_moe(cpu, x.cpu(), m)
+    C = M.expert_capacity(m, 256, 128)
+    plans = [M.dispatch(M.route(q, x.reshape(256, -1).to(dev), m)[2], C,
+                        m.num_experts)
+             for q, dev in ((p, card), (cpu, "cpu"))]
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(*plans))
+    assert_grad_close(got.cpu(), want, 0.0, 1e-5)
+    assert abs(float(aux) - float(want_aux)) <= 1e-6 * float(want_aux)
+
+
+def test_apply_moe_bf16_is_deterministic_and_never_syncs(card):
+    """qwen2-moe's MoE layer at full width (60 experts, top 4, the shared
+    expert) in bf16 over 2 x 512 tokens, with drops (capacity 1.25): no
+    host sync (``set_sync_debug_mode("error")``), and two calls give equal
+    outputs (the combine adds in a fixed order, no atomics)."""
+    from repro_torch.models import moe as M
+    p, m, x = _moe_on(card, "qwen2-moe-a2.7b", torch.bfloat16, 1024, 1.25,
+                      reduced=False)
+    M.apply_moe(p, x, m)                      # warm-up: allocations, handles
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, aux = M.apply_moe(p, x, m)
+        again, aux2 = M.apply_moe(p, x, m)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert torch.equal(got, again) and torch.equal(aux, aux2)
+    C = M.expert_capacity(m, 1024, 512)
+    _, slot = M.dispatch(M.route(p, x.reshape(1024, -1), m)[2], C,
+                         m.num_experts)
+    assert int((slot == m.num_experts * C).sum()) > 0      # drops happened
+    assert bool(torch.isfinite(got).all())

@@ -66,6 +66,22 @@ def test_torch_train_lm_with_cpr_runs_on_the_cpu(tmp_path):
     assert (ckpt / "CURRENT").exists()     # the checkpoints went there
 
 
+def test_torch_moe_expert_cpr_runs_on_the_cpu():
+    r = _run([str(ROOT / "examples" / "torch_moe_expert_cpr.py"), "--device",
+              "cpu"])
+    assert r.returncode == 0, r.stderr
+    lines = r.stdout.splitlines()
+    assert lines[0] == "expert hit histogram after 30 steps (E=4, top_k=2):"
+    hits = re.fullmatch(r"  hits: \[(\d+), (\d+), (\d+), (\d+)\]", lines[1])
+    # 30 steps of 4 x 64 tokens, each token to 2 of the 4 experts
+    assert hits and sum(map(int, hits.groups())) == 30 * 4 * 64 * 2
+    assert re.fullmatch(r"  traffic skew: top expert \d+ vs median \d+",
+                        lines[2])
+    assert re.fullmatch(r"  CPR-MFU would partial-save experts \[\d, \d\] "
+                        r"\(r=0\.5 -> 2 of 4\)", lines[3])
+    assert re.fullmatch(r"final loss \d+\.\d{3} \(device=cpu\)", lines[-1])
+
+
 def test_harness_writes_rows_with_the_device(tmp_path):
     r = _run(["-m", "benchmarks_torch.run", "--device", "cpu", "--fast",
               "--only", "fig3,fig13"], cwd=tmp_path)

@@ -41,7 +41,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
               "repro_torch.launch.shard_server",
               "repro_torch.analysis.protocol.spec",
               "repro_torch.kernels.row_hash",
-              "repro_torch.models.transformer", "repro_torch.launch.serve",
+              "repro_torch.models.transformer", "repro_torch.models.moe",
+              "repro_torch.launch.serve",
               "repro_torch.launch.train", "repro_torch.data.synthetic",
               "repro_torch.kernels.flash_attention",
               "repro_torch.kernels.rglru_scan", "benchmarks_torch.run",
@@ -52,7 +53,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         assert m in mods, m
     examples = [str(p) for p in EXAMPLES]
     assert [p.name for p in EXAMPLES] == [
-        "torch_cpr_tradeoff.py", "torch_quickstart.py", "torch_serve.py",
+        "torch_cpr_tradeoff.py", "torch_moe_expert_cpr.py",
+        "torch_quickstart.py", "torch_serve.py",
         "torch_train_lm_with_cpr.py"], examples
     code = (
         "import importlib, importlib.util, sys\n"

@@ -72,7 +72,9 @@ def test_config_copies_equal_the_reference(arch):
     assert {k: dataclasses.asdict(v) for k, v in
             port_base.INPUT_SHAPES.items()} == {
         k: dataclasses.asdict(v) for k, v in ref_base.INPUT_SHAPES.items()}
-    assert set(list_archs()) == {"recurrentgemma-2b", "gemma2-2b"}
+    assert set(list_archs()) == {"recurrentgemma-2b", "gemma2-2b",
+                                 "qwen2-7b", "qwen2.5-14b", "phi3-medium-14b",
+                                 "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b"}
 
 
 # ---------------------------------------------------------------- prefill --
@@ -108,14 +110,20 @@ def test_forward_hidden_and_positions():
 
 
 def test_later_slices_raise():
-    for kind in ("moe", "mlstm", "slstm"):
-        cfg = dataclasses.replace(get_config("gemma2-2b").reduced(),
-                                  block_pattern=(kind,))
+    """xLSTM, M-RoPE, bidirectional attention and the front ends raise;
+    QKV biases and the MoE kind (their slice has landed) do not."""
+    base = get_config("gemma2-2b").reduced()
+    for kind in ("mlstm", "slstm"):
+        cfg = dataclasses.replace(base, block_pattern=(kind,))
         with pytest.raises(NotImplementedError, match="slice"):
             T.init_model(cfg, device="cpu")
-    cfg = dataclasses.replace(get_config("gemma2-2b").reduced(), mrope=True)
-    with pytest.raises(NotImplementedError, match="VLM"):
-        T.init_model(cfg, device="cpu")
+    for changes, match in (({"mrope": True}, "VLM"),
+                           ({"causal": False}, "audio"),
+                           ({"modality_frontend": "vision"}, "front end")):
+        with pytest.raises(NotImplementedError, match=match):
+            T.init_model(dataclasses.replace(base, **changes), device="cpu")
+    T.init_model(dataclasses.replace(base, qkv_bias=True), device="cpu")
+    T.init_model(get_config("qwen2-moe-a2.7b").reduced(), device="cpu")
 
 
 def test_init_model_layout_matches_the_reference():
