@@ -99,8 +99,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    crash loses with and without XOR parity, and a re-admission; (c) fig16
    (inproc and pipe, the 2 -> 4 split) and fig17 (2 shards) at ``--fast``
    size, fig17's ``hash_kernel`` at the largest Kaggle table's
-   10,131,227 x 16 (the cuts and why: FIG15_FULL).  Every audit field must
-   be true and
+   10,131,227 x 16 (the cuts and why: FIG15_FULL); (b) and (c) run in
+   processes of their own beside phases that print no time
+   (BACKGROUND_FIGURES: fig16 and fig17 beside phase 4, fig15's fleets
+   beside 4m, 4h, 4v and 7 (b, c)), with the same rows, audits and
+   probes.  Every audit field must be true and
    ``unchanged_resave_bytes`` 0; the phase
    must launch ``row_hash`` (its count goes in the kernels line as
    ``harness_launches``); no pipe writer or socket server process may
@@ -119,6 +122,9 @@ freed first):
    f32 prefill shape (2, 10, 2176, 256) over (2, 1, 2176, 256) (the f32
    3xTF32 kernel at full width, beside f32 SDPA with TF32 off), and phase
    3m's bf16 (2, 16, 4096, 128) causal MHA (qwen2-moe-a2.7b's layers),
+   phase 3v's (1, 64, 4096, 128) over (1, 8, 4096, 128) causal GQA
+   (Qwen2-VL's), and HuBERT's bidirectional head dim 80 over 1,000 frames:
+   phase 3h's (8, 16, 1000, 80) bf16 and 4h's (1, 16, 1000, 80) f32,
    each with its own device time (profiler); the scan at
    (2, 4096, 2560) f32 and bf16 (bit for bit), with its own device time
    (profiler) and, as a yardstick, one ``torch.add`` over the same
@@ -136,7 +142,9 @@ freed first):
    with window 2,048 (the training run's), (2, 10, 4096, 256) over (2, 1,
    4096, 256) (the window bites), gemma2's (1, 8, 4096, 256) over (1, 4,
    4096, 256) global with softcap 50, f32 (4, 8, 128, 64) over (4, 4,
-   128, 64) with window 256 (the LM example's) and f32 (1, 10, 2176, 256)
+   128, 64) with window 256 (the LM example's), HuBERT's bidirectional
+   head dim 80 at 3h's (8, 16, 1000, 80) bf16 and 4h's (1, 16, 1000, 80)
+   f32, and f32 (1, 10, 2176, 256)
    over (1, 1, 2176, 256) with window 2,048 (the training check 7 (b) at
    full width), within
    ``BWD_TOL`` (|kernel - plain| <= rtol |plain| + atol max|plain|; the
@@ -199,7 +207,47 @@ parameters freed first):
    (b) The reduced qwen2-moe and qwen3-moe on the card and the CPU from the
    same parameters: ``forward`` logits within 1e-4 of the largest and
    identical greedy ``serve()`` completions.  The MoE parameters are
-   freed before phase 7 (its peak is 60.75 GB).
+   freed before 4h.
+
+The audio encoder and the VLM (HuBERT X-Large, Qwen2-VL):
+
+3h. The main path: ``hubert-xlarge`` at full width and depth (48 layers,
+   d 1,280, 16 bidirectional heads of 80, GELU MLP 5,120, LayerNorm; f32
+   parameters, the tree's exact count printed, bf16 activations; no token
+   embedding) over (8, 1,000) frame embeddings (20 s of
+   audio at 20 ms a frame; S is not a multiple of the 64-row tile, so the
+   ragged tail runs on the main path): one ``forward``, then
+   ``HUBERT_STEPS`` training steps (``lm_loss`` over HuBERT's span mask,
+   spans of 10 frames each frame starts with probability 0.08, its
+   backward, the port's ``adam``; no remat): the workload of
+   ``python -m repro_torch.launch.profile_encoder``.  Counts reset around the forward and
+   around the steps: ``flash_attention`` 48 launches a forward, and 48
+   each way a step.  Every loss finite, every gradient leaf non-zero, step
+   2's loss below step 0's plus 1.  Prints the forward's ms (median of
+   ``HUBERT_REPS``), each step's ms and the peak memory.
+3v. The main path: ``qwen2-vl-72b`` at full width (d 8,192, 64:8 heads
+   of 128, QKV biases, M-RoPE sections (16, 24, 24), MLP 29,568), depth
+   cut to ``VLM_LAYERS`` = 4 of 80 (6,002,155,520 parameters by
+   ``param_counts()``, and the final norm; 24.0 GB f32), one (1, 4,096)
+   prefill in bf16 with 1,024 patch embeddings at positions 16..1,039
+   (one 896 x 896 image, a 32 x 32 grid after the 2 x 2 merge) and
+   Qwen2-VL's M-RoPE positions (``image_positions``), then ``serve()``
+   answers 8 text requests at batch 4 (decode rotates by M-RoPE).
+   ``flash_attention`` launches 4 times a prefill.  Prints the prefill's
+   ms (median of ``VLM_REPS``), ms per decode step and the peak memory.
+4h. (a) One HuBERT layer at full width in f32 over (1, 1,000) frames, the
+   same parameters on the card and the CPU: ``lm_loss`` within 1e-5
+   relative, every gradient leaf within ``GRAD_AGREE`` of its largest
+   entry (the f32 kernels once each way); (b) the reduced
+   ``hubert-xlarge`` and a reduced variant at head dim 80 (d 160, 2
+   heads), card against CPU: logits within 1e-4 of the largest.
+4v. (a) At 3v's width in f32 (the parameters drawn again), prefill
+   against teacher-forced decode over ``VLM_AGREE_SEQ`` text tokens
+   (``arange`` positions): logits within 1e-4 of the largest at every
+   position; (b) the reduced ``qwen2-vl-72b`` on the card and the CPU
+   from the same parameters with the image-layout positions: logits
+   within 1e-4 of the largest, identical greedy ``serve()`` completions.
+   Its parameters are freed before phase 7 (its peak is 60.75 GB).
 
 LM training with CPR over the token rows (RecurrentGemma-2B):
 
@@ -237,9 +285,19 @@ more hosts.  Then phase 5 (d)'s examples were started together rather than
 one after another (91.3 -> 44.6 s: 46.7 s saved): 867.9 s.  No check was
 dropped.
 
-Phases run in the order 1, 2, 3, 4, 2b, 2c, 5, 6, 3b, 4b, 3m, 4m, 7.  The script
-prints its time after every phase.  The last two lines are
-``{"kernels": [...]}`` and ``{"ok": true, ...}``.
+When phases 3h, 4h, 3v and 4v arrived (PERF.md section 4 gives the runs),
+phase 6's process fleets (fig15's at --fast size, fig16 and fig17: 107.0,
+78.8 and 87.1 s in the last run before them, nearly all of it process
+start)
+moved into processes of their own beside phases that print no time, and
+7 (b, c), which print none, run before 7 (a) beside one of them; no check
+was cut.
+
+Phases run in the order 1, 2, 3, 4 (fig16 and fig17 beside it), 2b, 2c,
+5, 6 (fig15 at full width), 3b, 4b, 3h, 3v, 3m, 4m, 4h, 4v, 7 (b, c)
+(fig15's fleets beside these five), 7 (a).  The script prints its time
+after every phase.  The last two lines are ``{"kernels": [...]}`` and
+``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
@@ -283,23 +341,33 @@ FLEET = {"sharded_save": True, "delta_saves": True, "hash_backend": "kernel",
 # PREFILL_SHAPE, PREFILL_REPS, DECODE_*), imported in main()
 AGREE_SEQ = 2176             # prefill vs decode: past the window, ring wraps
 # flash_attention cases of phase 2b: name, (B, Hq, Hkv, S, hd), dtype,
-# window, softcap, (rtol, atol); the first is the serving path's own.  The
-# kernel and the plain version read the same inputs and both sum in f32,
-# so bf16 outputs may differ by one rounding (at most 2**-7 of the value)
+# causal, window, softcap, (rtol, atol); the first is the serving path's
+# own.  The kernel and the plain version read the same inputs and both sum
+# in f32, so bf16 outputs may differ by one rounding (at most 2**-7 of the
+# value)
 FLASH_CASES = (
     ("recurrentgemma-2b prefill", (2, 10, 1, 4096, 256), torch.bfloat16,
-     2048, 0.0, (1e-2, 4e-3)),
-    ("gemma2-2b global", (1, 8, 4, 4096, 256), torch.bfloat16, 0, 50.0,
+     True, 2048, 0.0, (1e-2, 4e-3)),
+    ("gemma2-2b global", (1, 8, 4, 4096, 256), torch.bfloat16, True, 0, 50.0,
      (1e-2, 4e-3)),
-    ("recurrentgemma-2b reduced", (2, 4, 1, 128, 64), torch.float32, 64, 0.0,
-     (0.0, 2e-5)),
+    ("recurrentgemma-2b reduced", (2, 4, 1, 128, 64), torch.float32, True, 64,
+     0.0, (0.0, 2e-5)),
     # phase 4b's f32 prefill: the 3xTF32 kernel at full width (the card
     # tests' f32 limit)
     ("recurrentgemma-2b f32 (phase 4b)", (2, 10, 1, AGREE_SEQ, 256),
-     torch.float32, 2048, 0.0, (2e-5, 2e-5)),
+     torch.float32, True, 2048, 0.0, (2e-5, 2e-5)),
     # phase 3m's prefill: every layer of qwen2-moe-a2.7b, head dim 128, MHA
-    ("qwen2-moe-a2.7b prefill", (2, 16, 16, 4096, 128), torch.bfloat16, 0,
-     0.0, (1e-2, 4e-3)))
+    ("qwen2-moe-a2.7b prefill", (2, 16, 16, 4096, 128), torch.bfloat16, True,
+     0, 0.0, (1e-2, 4e-3)),
+    # phase 3v's prefill: Qwen2-VL's GQA 64:8 at head dim 128
+    ("qwen2-vl-72b prefill", (1, 64, 8, 4096, 128), torch.bfloat16, True, 0,
+     0.0, (1e-2, 4e-3)),
+    # phase 3h's layers: HuBERT X-Large, bidirectional at head dim 80 over
+    # 1,000 frames (a ragged last tile), and phase 4h's f32 layer
+    ("hubert-xlarge (phase 3h)", (8, 16, 16, 1000, 80), torch.bfloat16,
+     False, 0, 0.0, (1e-2, 4e-3)),
+    ("hubert-xlarge f32 (phase 4h)", (1, 16, 16, 1000, 80), torch.float32,
+     False, 0, 0.0, (2e-5, 2e-5)))
 KEY_TILE = 64                # keys per tile of csrc/flash_attention_bf16.cu
 # phase 2c: the backward kernels.  Attention cases: name, (B, Hq, Hkv, S,
 # hd), dtype, window, softcap; the first is the training path's own.  The
@@ -310,15 +378,21 @@ KEY_TILE = 64                # keys per tile of csrc/flash_attention_bf16.cu
 # gradient to bf16 (at most 2**-8 of the value, nearest): (1e-2, 5e-3)
 BWD_FLASH_CASES = (
     ("recurrentgemma-2b training", (8, 10, 1, 512, 256), torch.bfloat16,
-     2048, 0.0),
+     True, 2048, 0.0),
     ("recurrentgemma-2b, window bites", (2, 10, 1, 4096, 256),
-     torch.bfloat16, 2048, 0.0),
-    ("gemma2-2b global", (1, 8, 4, 4096, 256), torch.bfloat16, 0, 50.0),
-    ("lm-100m example", (4, 8, 4, 128, 64), torch.float32, 256, 0.0),
+     torch.bfloat16, True, 2048, 0.0),
+    ("gemma2-2b global", (1, 8, 4, 4096, 256), torch.bfloat16, True, 0, 50.0),
+    ("lm-100m example", (4, 8, 4, 128, 64), torch.float32, True, 256, 0.0),
     # the training check 7 (b) at full width: one local-attention layer of
     # RecurrentGemma-2B in f32 over AGREE_SEQ tokens
     ("recurrentgemma-2b f32 (7 (b))", (1, 10, 1, AGREE_SEQ, 256),
-     torch.float32, 2048, 0.0))
+     torch.float32, True, 2048, 0.0),
+    # HuBERT X-Large's training step (phase 3h) and 4h (a)'s f32 layer:
+    # bidirectional at head dim 80 over 1,000 frames
+    ("hubert-xlarge training (phase 3h)", (8, 16, 16, 1000, 80),
+     torch.bfloat16, False, 0, 0.0),
+    ("hubert-xlarge f32 (phase 4h)", (1, 16, 16, 1000, 80), torch.float32,
+     False, 0, 0.0))
 BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 5e-3)}
 BWD_KEY_TILE = 64            # keys per dK/dV tile of both backward sources
 # the backward's kernels by dtype, as the profiler names them
@@ -364,6 +438,24 @@ MOE_PREFILL_REPS = 3         # the prefill's time: the median of this many
 # the first token whose route flipped
 MOE_AGREE_SEQ = 256
 ROUTE_TIE = 1e-5
+# the audio encoder (phases 3h-4h): HuBERT X-Large at full width and
+# depth, over 20 s of audio at HuBERT's 20 ms frame rate (1,000 frames: a
+# ragged last 64-row tile), trained HUBERT_STEPS steps with Adam on
+# masked prediction over HuBERT's span mask: the workload of
+# repro_torch.launch.profile_encoder (ARCH, BATCH, FRAMES, SPAN,
+# SPAN_START, LR, make_batch), imported where it runs
+HUBERT_REPS = 3              # the forward's time: the median of this many
+HUBERT_STEPS = 3
+# the VLM (phases 3v-4v): Qwen2-VL at its full width, depth cut to
+# VLM_LAYERS of 80 (72.7 B parameters do not fit one card); one (1, 4,096)
+# prefill holding one 896 x 896 image, a 32 x 32 grid of patches after the
+# 2 x 2 merge, at positions 16..1,039 (VLM_IMAGE: start, rows, columns)
+VLM_ARCH = "qwen2-vl-72b"
+VLM_LAYERS = 4
+VLM_PREFILL = 4096
+VLM_IMAGE = (16, 32, 32)
+VLM_REPS = 3
+VLM_AGREE_SEQ = 256          # 4v (a): prefill vs decode over text tokens
 SCRATCH = Path(__file__).resolve().parent / "build" / "chip_smoke"
 # phase 5: the benchmark harness.  fig7's policy fields must be equal on the
 # card and the CPU.  At the harness's size (70 steps) the trained model
@@ -429,6 +521,22 @@ FIG15_FLEETS = {"n_shards": (2,), "lost_shards": (2,),
                           "bytes_lost_at_crash", "readmission")}
 FIG16_CUT = {"transitions": ((2, 4),)}
 FIG17_CUT = {"n_shards": 2}
+# phase 6's process fleets (fig15's at --fast size, fig16, fig17) are
+# bound by their processes' start on the card's host: each runs in a
+# process of its own (``chip_smoke.py --fleet-figure NAME OUT``) beside
+# phases that print no time (fig16 and fig17 beside phase 4, fig15's
+# beside 4m, 4h, 4v and 7 (b, c)), with the same rows, audits and probes
+# as before.  name -> (label, harness module, arguments over its --fast
+# ones, (pipe writers, socket servers) that must report)
+BACKGROUND_FIGURES = {
+    "fig15": ("fig15 --fast, 2 shards", "fig15_sharded_save", FIG15_FLEETS,
+              (True, True)),
+    "fig16": ("fig16 --fast, one transition", "fig16_reshard", FIG16_CUT,
+              (True, False)),
+    "fig17": (f"fig17 --fast, 2 shards, hash_kernel at {N_BIG:,} rows",
+              "fig17_wire", dict(hash_rows=N_BIG, **FIG17_CUT),
+              (False, True))}
+BACKGROUND = Path(__file__).resolve().parent / "build" / "chip_smoke_bg"
 
 
 def fail(msg: str) -> None:
@@ -1310,11 +1418,6 @@ def phase_fleet_figures(dev, kernels, cfg):
 
     from benchmarks_torch import common
     from benchmarks_torch import fig15_sharded_save as fig15
-    from benchmarks_torch import fig16_reshard as fig16
-    from benchmarks_torch import fig17_wire as fig17
-    from benchmarks_torch import run as harness
-    from repro_torch.core import transport
-    from repro_torch.launch import shard_server
     label = common.device_label(dev)
     tmp = tempfile.gettempdir()
     free, ram = shutil.disk_usage(tmp).free, available_ram()
@@ -1324,73 +1427,161 @@ def phase_fleet_figures(dev, kernels, cfg):
         fail(f"the fleet figures need {FLEET_DISK_BYTES / 1e9:.0f} GB of "
              f"disk under {tmp} and {FLEET_RAM_BYTES / 1e9:.0f} GB of host "
              f"memory")
-    probes = SCRATCH / "probe-fleet"
+    # fig15 at full width (memory, its writers threads); the process
+    # fleets run in processes of their own (BACKGROUND_FIGURES)
+    name = f"fig15 (full width, {cfg.total_emb_rows():,} rows)"
+    kw = dict(FIG15_FULL, max_rows=max(cfg.table_sizes))  # nothing scaled
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rows = fig15.run(device=dev, **kw)
+    for row in rows:
+        print(f"{name} {json.dumps({**row, 'device': label})}")
+    launches = dict(kernels.LAUNCHES)
+    print(f"{name}: launches {json.dumps(launches)} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    # the same delta saves on the CPU (the plain hash), from the same
+    # numpy draw: equal rows
+    t0 = time.perf_counter()
+    card = [r for r in rows if r["kind"] == "delta_save"]
+    cpu = fig15.run(**dict(kw, kinds=("delta_save",)), device="cpu")
+    print(f"{name} delta_save on the CPU {json.dumps(cpu)} equal to the "
+          f"card's={card == cpu} ({time.perf_counter() - t0:.1f} s)")
+    if card != cpu:
+        fail("fig15's full-width delta saves differ between the card and "
+             "the CPU")
+    common.clear_fleet_state()
+    check_fleet_rows(name, rows)
+    if launches["row_hash"] == 0:
+        fail("the fleet figures never launched row_hash")
+    return launches["row_hash"]
+
+
+def check_fleet_rows(name, rows):
+    """Every audit field of a fleet figure's rows true, and an unchanged
+    re-save 0 bytes."""
+    for row in rows:
+        bad = [k for k in FLEET_AUDITS if k in row and row[k] is not True]
+        if bad:
+            fail(f"{name} {row['kind']}: audit {bad} false on the card")
+        if row.get("unchanged_resave_bytes", 0) != 0:
+            fail(f"{name}: an unchanged re-save shipped "
+                 f"{row['unchanged_resave_bytes']} bytes")
+
+
+def check_probes(name, states, writers=False, servers=False):
+    """The pipe writer and socket server processes' own reports (file name
+    -> whether they created a CUDA context): none did, and the kinds
+    asked for reported."""
+    n_writers = sum(n.startswith("writer-") for n in states)
+    n_servers = sum(n.startswith("server-") for n in states)
+    cuda = sorted(f"{n}: {v!r}" for n, v in states.items() if v != "False")
+    alive = [n for n in states
+             if os.path.exists(f"/proc/{n[:-4].split('-')[1]}")]
+    print(f"{name}: {n_writers} pipe writer and {n_servers} socket server "
+          f"processes reported ({len(alive)} still running); a CUDA context "
+          f"in {len(cuda)}")
+    if (writers and not n_writers) or (servers and not n_servers) or \
+            not states or cuda:
+        fail(f"{name}: a fleet process created a CUDA context (or none "
+             f"reported): {cuda}")
+
+
+def fleet_figure_main(name: str, out: str) -> None:
+    """``chip_smoke.py --fleet-figure NAME OUT``: one of BACKGROUND_FIGURES
+    on the card in this process, its pipe writers and socket servers
+    probed as in phase 6; writes its rows, launch counts, probe reports
+    and seconds to the JSON file OUT."""
+    import importlib
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script runs the port on a GPU")
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from benchmarks_torch import common
+    from benchmarks_torch import run as harness
+    from repro_torch import kernels
+    from repro_torch.core import transport
+    from repro_torch.launch import shard_server
+    _, module, kw, _ = BACKGROUND_FIGURES[name]
+    mod = importlib.import_module(f"benchmarks_torch.{module}")
+    probes = BACKGROUND / f"probe-{name}"
     shutil.rmtree(probes, ignore_errors=True)
     probes.mkdir(parents=True)
     os.environ[PROBE_ENV] = str(probes)
     transport._pipe_worker_main = _pipe_writer_probe
     shard_server.spawned_server_main = _server_probe
-    fast = harness.FAST_OVERRIDES
-    top = max(cfg.table_sizes)           # a max_rows that scales nothing
-    runs = (
-        (f"fig15 (full width, {cfg.total_emb_rows():,} rows)", fig15,
-         dict(FIG15_FULL, max_rows=top)),
-        ("fig15 --fast, 2 shards", fig15, dict(fast["fig15"], **FIG15_FLEETS)),
-        ("fig16 --fast, one transition", fig16,
-         dict(fast["fig16"], **FIG16_CUT)),
-        (f"fig17 --fast, 2 shards, hash_kernel at {N_BIG:,} rows", fig17,
-         dict(fast["fig17"], hash_rows=N_BIG, **FIG17_CUT)))
+    dev = torch.device("cuda")
     kernels.reset_launches()
-    t_phase = time.perf_counter()
-    rows = {}
-    for i, (name, mod, kw) in enumerate(runs):
-        t0 = time.perf_counter()
-        before = dict(kernels.LAUNCHES)
-        rows[name] = mod.run(device=dev, **kw)
-        for row in rows[name]:
-            print(f"{name} {json.dumps({**row, 'device': label})}")
-        print(f"{name}: launches {json.dumps(launches_since(kernels, before))}"
-              f" ({time.perf_counter() - t0:.1f} s)")
-        if i == 0:
-            # the same delta saves on the CPU (the plain hash), from the
-            # same numpy draw: equal rows
-            t0 = time.perf_counter()
-            card = [r for r in rows[name] if r["kind"] == "delta_save"]
-            cpu = mod.run(**dict(kw, kinds=("delta_save",)), device="cpu")
-            print(f"{name} delta_save on the CPU {json.dumps(cpu)} equal to "
-                  f"the card's={card == cpu} "
-                  f"({time.perf_counter() - t0:.1f} s)")
-            if card != cpu:
-                fail("fig15's full-width delta saves differ between the card "
-                     "and the CPU")
+    t0 = time.perf_counter()
+    rows = mod.run(device=dev, **dict(harness.FAST_OVERRIDES[name], **kw))
     common.clear_fleet_state()
-    launches = dict(kernels.LAUNCHES)
-    print(f"fleet figures: row_hash launches {launches['row_hash']} "
-          f"({time.perf_counter() - t_phase:.1f} s)")
-    for name, out in rows.items():
-        for row in out:
-            bad = [k for k in FLEET_AUDITS if k in row and row[k] is not True]
-            if bad:
-                fail(f"{name} {row['kind']}: audit {bad} false on the card")
-            if row.get("unchanged_resave_bytes", 0) != 0:
-                fail(f"{name}: an unchanged re-save shipped "
-                     f"{row['unchanged_resave_bytes']} bytes")
-    if launches["row_hash"] == 0:
-        fail("the fleet figures never launched row_hash")
-
-    states = {f.name: f.read_text() for f in probes.glob("*.txt")}
-    writers = sum(n.startswith("writer-") for n in states)
-    servers = sum(n.startswith("server-") for n in states)
-    cuda = sorted(f"{n}: {v!r}" for n, v in states.items() if v != "False")
-    alive = [n for n in states if os.path.exists(f"/proc/{n[:-4].split('-')[1]}")]
-    print(f"fleet figures: {writers} pipe writer and {servers} socket server "
-          f"processes reported ({len(alive)} still running); a CUDA context "
-          f"in {len(cuda)}")
-    if not writers or not servers or cuda:
-        fail(f"a fleet process created a CUDA context (or none reported): "
-             f"{cuda}")
+    Path(out).write_text(json.dumps({
+        "rows": rows, "launches": dict(kernels.LAUNCHES),
+        "probes": {f.name: f.read_text() for f in probes.glob("*.txt")},
+        "seconds": time.perf_counter() - t0,
+        "device": common.device_label(dev)}))
     shutil.rmtree(probes, ignore_errors=True)
-    return launches["row_hash"]
+
+
+_BACKGROUND_PROCS = []
+
+
+def _stop(proc):
+    """Ends a background figure process and whatever it started and left
+    running (its own process group)."""
+    import signal
+    with contextlib.suppress(ProcessLookupError, PermissionError):
+        os.killpg(proc.pid, signal.SIGKILL)
+    proc.wait()
+
+
+def _stop_background():
+    for proc in _BACKGROUND_PROCS:
+        _stop(proc)
+
+
+def start_fleet_figure(name: str):
+    """Starts one of BACKGROUND_FIGURES in a process of its own (a
+    session of its own, so that nothing it starts outlives the script)."""
+    import atexit
+    BACKGROUND.mkdir(parents=True, exist_ok=True)
+    out, log = BACKGROUND / f"{name}.json", BACKGROUND / f"{name}.log"
+    out.unlink(missing_ok=True)
+    if not _BACKGROUND_PROCS:
+        atexit.register(_stop_background)
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--fleet-figure",
+             name, str(out)], stdout=f, stderr=subprocess.STDOUT,
+            start_new_session=True)
+    _BACKGROUND_PROCS.append(proc)
+    print(f"{BACKGROUND_FIGURES[name][0]}: started in a process of its own")
+    return name, proc, out, log, time.perf_counter()
+
+
+def finish_fleet_figure(handle, timeout: float = 900.0) -> int:
+    """Waits for a background figure, prints its rows and launches, checks
+    its audits and probes as phase 6 does; returns its row_hash
+    launches."""
+    name, proc, out, log, t0 = handle
+    label = BACKGROUND_FIGURES[name][0]
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        pass
+    _stop(proc)              # and whatever of its group is left
+    waited = time.perf_counter() - t0
+    if proc.returncode or not out.exists():
+        fail(f"{label} failed in its process (exit {proc.returncode}): "
+             f"{log.read_text()[-3000:]}")
+    res = json.loads(out.read_text())
+    for row in res["rows"]:
+        print(f"{label} {json.dumps({**row, 'device': res['device']})}")
+    print(f"{label}: launches {json.dumps(res['launches'])} "
+          f"({res['seconds']:.1f} s in its own process; joined "
+          f"{waited:.1f} s after its start)")
+    check_fleet_rows(label, res["rows"])
+    writers, servers = BACKGROUND_FIGURES[name][3]
+    check_probes(label, res["probes"], writers, servers)
+    return res["launches"]["row_hash"]
 
 
 def launches_since(kernels, before):
@@ -1558,25 +1749,35 @@ def band_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
     return int(keep.sum())
 
 
+def band_mask(S, causal, window, dev):
+    """The (S, S) mask of the band (None where every key is seen), for
+    ``F.scaled_dot_product_attention``."""
+    if not causal and not window:
+        return None
+    i = torch.arange(S, device=dev)
+    return ((i[None, :] <= i[:, None]) | (not causal)) & (
+        i[:, None] - i[None, :] < (window or S + 1))
+
+
 def phase_lm_kernels(dev, ops, ref):
     """``flash_attention`` and ``rglru_scan`` against their plain versions
     at the serving path's shapes (phase 2b)."""
     import torch.nn.functional as F
     gen = torch.Generator(device=dev).manual_seed(2)
     rows = {}
-    for name, (B, Hq, Hkv, S, hd), dtype, window, cap, (rtol, atol) in \
-            FLASH_CASES:
+    for name, (B, Hq, Hkv, S, hd), dtype, causal, window, cap, (rtol, atol) \
+            in FLASH_CASES:
         q = torch.randn((B, S, Hq, hd), generator=gen, device=dev).to(dtype)
         k = torch.randn((B, S, Hkv, hd), generator=gen, device=dev).to(dtype)
         v = torch.randn((B, S, Hkv, hd), generator=gen, device=dev).to(dtype)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
         def kernel():
-            return ops.flash_attention(q, k, v, causal=True, window=window,
+            return ops.flash_attention(q, k, v, causal=causal, window=window,
                                        softcap=cap)
 
         def plain():
-            return ref.flash_attention(qt, kt, vt, True, window, cap)
+            return ref.flash_attention(qt, kt, vt, causal, window, cap)
 
         want = plain().transpose(1, 2).float()
 
@@ -1590,10 +1791,11 @@ def phase_lm_kernels(dev, ops, ref):
         # what a kernel whose window edge sat one key tile off would read
         # (the plain version with the window one tile shorter): the limit
         # must reject it
-        off = (excess(ref.flash_attention(qt, kt, vt, True, window - KEY_TILE,
+        off = (excess(ref.flash_attention(qt, kt, vt, causal,
+                                          window - KEY_TILE,
                                           cap).transpose(1, 2))
                if window else None)
-        pairs = B * Hq * band_pairs(S, S, True, window)
+        pairs = B * Hq * band_pairs(S, S, causal, window)
         rate = (BF16_OPS_PER_S if dtype == torch.bfloat16
                 else F32_TC_OPS_PER_S)
         nbytes = (q.numel() * 2 + k.numel() * 2) * q.element_size()
@@ -1602,9 +1804,7 @@ def phase_lm_kernels(dev, ops, ref):
                f"{bound(nbytes, ops=4 * hd * pairs)[0]:.5f})")
         library = None
         if not cap:         # one PyTorch call computes the same function
-            i = torch.arange(S, device=dev)
-            band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :]
-                                                 < (window or S + 1))
+            band = band_mask(S, causal, window, dev)
             library = time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=band, enable_gqa=True))
         # the plain versions take 10-210 ms a call: 5 calls, as in 2c
@@ -1614,7 +1814,7 @@ def phase_lm_kernels(dev, ops, ref):
         own, _ = device_ms(kernel, "flash_fwd")
         ok = ratio <= 1.0
         print(f"flash_attention {name}: q {tuple(q.shape)} k {tuple(k.shape)} "
-              f"{str(dtype)[6:]} window={window} softcap={cap} "
+              f"{str(dtype)[6:]} causal={causal} window={window} softcap={cap} "
               f"pairs={pairs} max_abs_err={err:.3e} limit |err| <= "
               f"{rtol:g}*|plain| + {atol:g} (largest share of it "
               f"{ratio:.3f}) ok={ok} ms={row['ms']:.4f} kernel device ms="
@@ -2036,6 +2236,342 @@ def phase_moe_agreement(dev, params, cfg):
                  f"path")
 
 
+def hubert_param_count(cfg) -> int:
+    """The tree's parameters: ``param_counts()`` (the reference's) counts a
+    token embedding HuBERT does not have and 2 d of norms a layer, where
+    its LayerNorms hold 4 d, and leaves out the final norm's 2 d."""
+    d = cfg.d_model
+    return (cfg.param_counts()["total"] - cfg.vocab_size * d
+            + 2 * d * cfg.num_layers + 2 * d)
+
+
+def phase_hubert(dev, kernels, cfg):
+    """The audio encoder at full width and depth (phase 3h): one
+    ``forward`` over (8, 1000) frames, then HUBERT_STEPS training steps
+    (masked prediction, its backward, Adam); then the forward's time over
+    more forwards."""
+    from repro_torch.launch import profile_encoder as P
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import adam, apply_updates
+    from repro_torch.tree import leaves, unflatten
+    t0 = time.perf_counter()
+    params = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = T.param_count(params)
+    print(f"{cfg.name}: {n_params:,} parameters, f32 "
+          f"({n_params * 4 / 1e9:.2f} GB) on the card, {cfg.dtype} "
+          f"activations, no token embedding "
+          f"({time.perf_counter() - t0:.1f} s to draw)")
+    if n_params != hubert_param_count(cfg):
+        fail(f"{cfg.name} drew {n_params:,} parameters, not "
+             f"{hubert_param_count(cfg):,}")
+    B, S = P.BATCH, P.FRAMES
+    batch = P.make_batch(cfg, B, S, 1, dev)
+    with torch.no_grad():
+        T.forward(params, {"embeds": batch["embeds"][:, :128]}, cfg)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def forward():
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, _ = T.forward(params, {"embeds": batch["embeds"]}, cfg)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, logits
+
+    kernels.reset_launches()
+    fwd_s, logits = forward()
+    fwd_counts = dict(kernels.LAUNCHES)
+    finite = bool(torch.isfinite(logits).all())
+    shape = tuple(logits.shape)
+    del logits
+    opt = adam(P.LR)
+    state = opt.init(params)
+    flat = leaves(params)
+    for t in flat:
+        t.requires_grad_(True)
+    losses, step_s, zero = [], [], []
+    kernels.reset_launches()
+    for i in range(HUBERT_STEPS):
+        t0 = time.perf_counter()
+        loss, _ = T.lm_loss(params, batch, cfg)
+        grads = torch.autograd.grad(loss, flat)
+        if i == 0:
+            zero = [n for n, g in enumerate(grads) if not bool((g != 0).any())]
+        updates, state = opt.update(unflatten(params, grads), state, params)
+        apply_updates(params, updates)
+        losses.append(loss.item())
+        step_s.append(time.perf_counter() - t0)
+        del loss, grads, updates
+    train_counts = dict(kernels.LAUNCHES)
+    for t in flat:
+        t.requires_grad_(False)
+    times = [fwd_s] + [forward()[0] for _ in range(HUBERT_REPS - 1)]
+    peak = torch.cuda.max_memory_allocated()
+    n_masked = int(batch["target_mask"].sum())
+    print(f"forward {cfg.name} ({B}, {S}) frames: median of {HUBERT_REPS} "
+          f"forwards {statistics.median(times) * 1e3:.1f} ms (each: "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)}), logits {shape} "
+          f"finite={finite}")
+    print(f"train {cfg.name} ({B}, {S}) frames, masked prediction over "
+          f"{n_masked} of {B * S} frames (spans of {P.SPAN}, start "
+          f"probability {P.SPAN_START}), Adam lr {P.LR:g}, no remat: "
+          f"losses {', '.join(f'{l:.4f}' for l in losses)}; ms per step "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in step_s)} (median of steps "
+          f"1..: {statistics.median(step_s[1:]) * 1e3:.1f}); peak memory "
+          f"{peak / 1e9:.2f} GB")
+    print(f"launches: forward {json.dumps(fwd_counts)}; "
+          f"{HUBERT_STEPS} steps {json.dumps(train_counts)}")
+    if shape != (B, S, cfg.vocab_size) or not finite:
+        fail("the HuBERT forward's logits have the wrong shape or are not "
+             "finite")
+    if not all(map(math.isfinite, losses)):
+        fail(f"HuBERT training: a loss is not finite: {losses}")
+    if zero:
+        fail(f"HuBERT training: gradient leaves {zero} are zero")
+    if not losses[2] < losses[0] + 1:
+        fail(f"HuBERT training: step 2's loss {losses[2]} is not below step "
+             f"0's plus 1")
+    L = cfg.num_layers
+    if fwd_counts["flash_attention"] != L:
+        fail(f"flash_attention launched {fwd_counts['flash_attention']} "
+             f"times in a HuBERT forward, not {L}")
+    for name in ("flash_attention", "flash_attention_backward"):
+        if train_counts[name] != L * HUBERT_STEPS:
+            fail(f"{name} launched {train_counts[name]} times in "
+                 f"{HUBERT_STEPS} HuBERT steps, not {L} a step")
+    del params, state, flat, batch
+    torch.cuda.empty_cache()
+    return {n: fwd_counts[n] + train_counts[n] for n in fwd_counts}
+
+
+def phase_hubert_agreement(dev, kernels, cfg):
+    """(a) One HuBERT layer at full width in f32 over (1, 1,000) frames,
+    the same parameters on the card and the CPU: ``lm_loss`` within 1e-5
+    relative, every gradient leaf within GRAD_AGREE of its largest entry;
+    (b) the reduced ``hubert-xlarge`` and a reduced variant at head dim 80
+    on the card against the CPU: logits within 1e-4 of the largest (phase
+    4h)."""
+    import dataclasses
+
+    from repro_torch.launch import profile_encoder as P
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves, tree_map, unflatten
+    t0 = time.perf_counter()
+    one = dataclasses.replace(cfg, num_layers=1, dtype="float32")
+    cpu = T.init_model(one, torch.Generator().manual_seed(0), "cpu")
+    batch = P.make_batch(one, 1, P.FRAMES, 7, "cpu")
+    out = {}
+    before = dict(kernels.LAUNCHES)
+    for d in (dev, "cpu"):
+        params = cpu if d == "cpu" else tree_map(lambda t: t.to(dev), cpu)
+        live = [t.detach().requires_grad_(True) for t in leaves(params)]
+        loss, _ = T.lm_loss(unflatten(params, live),
+                            {k: v.to(d) for k, v in batch.items()}, one)
+        loss.backward()
+        if d == dev:
+            f32 = {n: kernels.LAUNCHES[n] - before[n] for n in
+                   ("flash_attention", "flash_attention_backward")}
+        out[str(d)] = (loss.item(), [t.grad.cpu() for t in live])
+        del params, live, loss
+    (lg, gg), (lc, gc) = out[str(dev)], out["cpu"]
+    shares = [((a - b).abs().max() / b.abs().max()).item()
+              for a, b in zip(gg, gc)]
+    ok = (abs(lg - lc) <= 1e-5 * abs(lc) and max(shares) <= GRAD_AGREE
+          and all(n == 1 for n in f32.values()))
+    print(f"gradients at full width ({one.name}, 1 layer, f32, (1, "
+          f"{P.FRAMES}) frames, bidirectional, head dim "
+          f"{one.head_dim}): loss card {lg:.6f} cpu {lc:.6f} (tol 1e-5 "
+          f"relative); {len(gg)} leaves, largest |card - cpu| / max|cpu| "
+          f"{max(shares):.3e} (limit {GRAD_AGREE:g}; by leaf "
+          f"{', '.join(f'{x:.1e}' for x in shares)}); f32 attention "
+          f"launches on the card {json.dumps(f32)} ok={ok} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if not ok:
+        fail("HuBERT's full-width layer on the card disagrees with the CPU")
+    del out, gg, gc, cpu
+
+    for name, changes in (("reduced", {}),
+                          ("head dim 80", {"d_model": 160, "num_heads": 2,
+                                           "num_kv_heads": 2,
+                                           "head_dim": 80})):
+        small = dataclasses.replace(cfg.reduced(), **changes)
+        cpu = T.init_model(small, torch.Generator().manual_seed(0), "cpu")
+        card = tree_map(lambda t: t.to(dev), cpu)
+        x = P.make_batch(small, 2, 200, 8, "cpu")["embeds"]
+        with torch.no_grad():
+            got, _ = T.forward(card, {"embeds": x.to(dev)}, small)
+            want, _ = T.forward(cpu, {"embeds": x}, small)
+        err = (got.cpu() - want).abs().max().item()
+        scale = want.abs().max().item()
+        ok = err <= 1e-4 * scale
+        print(f"agreement ({small.name}, {name}, head dim {small.head_dim}, "
+              f"f32, (2, 200) frames): card vs CPU forward max_abs_err="
+              f"{err:.3e} tol=1e-4*max|logit| ({scale:.4f}) ok={ok}")
+        if not ok:
+            fail(f"the {name} HuBERT on the card disagrees with the CPU path")
+    torch.cuda.empty_cache()
+
+
+def image_positions(S, start, rows, cols):
+    """Qwen2-VL's (3, S) M-RoPE positions (numpy): text before the image
+    at t = h = w = its index; the image's rows x cols patches at t = start,
+    h = start + row, w = start + column; text after it from the largest
+    position + 1."""
+    n = rows * cols
+    pos = np.empty((3, S), np.int64)
+    pos[:, :start] = np.arange(start)
+    r, c = np.divmod(np.arange(n), cols)
+    pos[:, start:start + n] = start
+    pos[1, start:start + n] += r
+    pos[2, start:start + n] += c
+    pos[:, start + n:] = pos[:, :start + n].max() + 1 + np.arange(
+        S - start - n)
+    return pos
+
+
+def vlm_batch(cfg, B, S, image, seed, dev):
+    """Tokens, one image's patch embeddings at its place and the
+    image-layout positions, from a seed."""
+    start, rows, cols = image
+    n = rows * cols
+    rng = np.random.default_rng(seed)
+    pos = torch.from_numpy(image_positions(S, *image))
+    return {"tokens": torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (B, S))).to(dev),
+            "patch_embeds": torch.from_numpy(rng.normal(
+                size=(B, n, cfg.d_model)).astype(np.float32)).to(dev),
+            "patch_positions": torch.arange(start, start + n,
+                                            device=dev).expand(B, n),
+            "positions": pos[:, None].expand(3, B, S).to(dev)}
+
+
+@torch.no_grad()
+def phase_vlm_serving(dev, kernels, cfg):
+    """Qwen2-VL at full width, VLM_LAYERS deep (phase 3v): one prefill
+    ``forward`` over VLM_PREFILL tokens holding one image's patch
+    embeddings, with the image-layout M-RoPE positions; then ``serve()``
+    answers 8 text requests (decode rotates by M-RoPE); then the
+    prefill's time over more forwards."""
+    from repro_torch.launch.serve import make_requests, serve
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    params = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = T.param_count(params)
+    # param_counts() leaves out the final norm's d
+    want = cfg.param_counts()["total"] + cfg.d_model
+    print(f"{cfg.name} cut to {cfg.num_layers} layers: {n_params:,} "
+          f"parameters, f32 ({n_params * 4 / 1e9:.2f} GB) on the card, "
+          f"{cfg.dtype} activations ({time.perf_counter() - t0:.1f} s to "
+          f"draw)")
+    if n_params != want:
+        fail(f"{cfg.name} drew {n_params:,} parameters, not {want:,}")
+    batch = vlm_batch(cfg, 1, VLM_PREFILL, VLM_IMAGE, 1, dev)
+    T.forward(params, {"tokens": batch["tokens"][:, :256]}, cfg)  # warm-up
+    reqs = make_requests(8, 64, cfg.vocab_size, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def prefill():
+        t0 = time.perf_counter()
+        logits, _ = T.forward(params, batch, cfg)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, logits
+
+    kernels.reset_launches()
+    prefill_s, logits = prefill()
+    pre_counts = dict(kernels.LAUNCHES)
+    finite = bool(torch.isfinite(logits).all())
+    shape = tuple(logits.shape)
+    del logits
+    done, stats = serve(cfg, reqs, batch=4, gen=32, params=params, device=dev)
+    counts = dict(kernels.LAUNCHES)
+    times = [prefill_s] + [prefill()[0] for _ in range(VLM_REPS - 1)]
+    peak = torch.cuda.max_memory_allocated()
+    start, rows, cols = VLM_IMAGE
+    print(f"prefill {cfg.name} (1, {VLM_PREFILL}) with {rows * cols} patch "
+          f"embeddings at {start}..{start + rows * cols - 1} ({rows} x "
+          f"{cols} grid, M-RoPE t/h/w positions): median of {VLM_REPS} "
+          f"forwards {statistics.median(times) * 1e3:.1f} ms (each: "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)}), logits {shape} "
+          f"finite={finite}, peak memory {peak / 1e9:.2f} GB")
+    print(f"serve {cfg.name}: {len(done)} requests (prompts "
+          f"{min(map(len, reqs))}..{max(map(len, reqs))} tokens), batch 4, "
+          f"gen 32: {stats['tokens']} tokens in {stats['wall_s']:.2f} s -> "
+          f"{stats['tok_per_s']:.1f} tokens/s, "
+          f"{stats['wall_s'] / stats['steps'] * 1e3:.2f} ms per decode step "
+          f"at batch 4 ({stats['steps']} steps, {stats['refills']} refills; "
+          f"f32 state, {cfg.dtype} activations)")
+    print(f"launches (prefill + serve): {json.dumps(counts)}")
+    if shape != (1, VLM_PREFILL, cfg.vocab_size) or not finite:
+        fail("the Qwen2-VL prefill's logits have the wrong shape or are not "
+             "finite")
+    if sorted(done) != list(range(8)) or any(
+            len(c) != 32 or not all(0 <= t < cfg.vocab_size for t in c)
+            for c in done.values()):
+        fail("serve() did not answer every request with 32 tokens")
+    if pre_counts["flash_attention"] != cfg.num_layers:
+        fail(f"flash_attention launched {pre_counts['flash_attention']} "
+             f"times in the Qwen2-VL prefill, not {cfg.num_layers}")
+    return params, counts
+
+
+@torch.no_grad()
+def phase_vlm_agreement(dev, params, cfg):
+    """(a) Prefill against teacher-forced decode at full width in f32 over
+    VLM_AGREE_SEQ text tokens (``arange`` positions); (b) the reduced
+    Qwen2-VL on the card and the CPU from the same parameters with the
+    image-layout positions, and greedy ``serve()`` (phase 4v)."""
+    import dataclasses
+
+    from repro_torch.launch.serve import make_requests, serve
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    t0 = time.perf_counter()
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    S = VLM_AGREE_SEQ
+    gen = torch.Generator(device=dev).manual_seed(5)
+    toks = torch.randint(0, f32.vocab_size, (1, S), generator=gen, device=dev)
+    full, _ = T.forward(params, {"tokens": toks}, f32)
+    state = T.init_decode_state(f32, 1, S, torch.float32, dev)
+    err = torch.zeros((), device=dev)
+    for i in range(S):
+        logits, state = T.decode_step(params, state, toks[:, i], i, f32)
+        err = torch.maximum(err, (logits[0] - full[0, i]).abs().max())
+    scale = full.abs().max().item()
+    err = err.item()
+    ok = err <= 1e-4 * scale
+    print(f"prefill vs decode ({cfg.name} cut to {cfg.num_layers} layers, "
+          f"f32, (1, {S}) text tokens, M-RoPE on arange positions): "
+          f"max_abs_err={err:.3e} over every position, max |logit|="
+          f"{scale:.4f}, tol=1e-4*max|logit| ok={ok} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if not ok:
+        fail("the Qwen2-VL prefill and decode disagree at full width")
+    del full, state
+    torch.cuda.empty_cache()
+
+    small = cfg.reduced()
+    cpu = T.init_model(small, torch.Generator().manual_seed(0), "cpu")
+    card = tree_map(lambda t: t.to(dev), cpu)
+    batch = vlm_batch(small, 2, 128, (16, 8, 8), 9, "cpu")
+    got, _ = T.forward(card, {k: v.to(dev) for k, v in batch.items()}, small)
+    want, _ = T.forward(cpu, batch, small)
+    err = (got.cpu() - want).abs().max().item()
+    scale = want.abs().max().item()
+    reqs = make_requests(8, 24, small.vocab_size, seed=0)
+    a, _ = serve(small, reqs, batch=4, gen=16, params=card, device=dev)
+    b, _ = serve(small, reqs, batch=4, gen=16, params=cpu, device="cpu")
+    ok = err <= 1e-4 * scale and a == b
+    print(f"agreement ({small.name}, f32, (2, 128) tokens with 64 patches "
+          f"and image-layout positions): card vs CPU forward max_abs_err="
+          f"{err:.3e} tol=1e-4*max|logit| ({scale:.4f}); serve() greedy "
+          f"completions of 8 requests identical={a == b} ok={ok}")
+    if not ok:
+        fail("the reduced Qwen2-VL on the card disagrees with the CPU path")
+
+
 def bwd_excess(got, want, rtol, atol):
     """max |got - want| and its largest ratio to the limit rtol * |want| +
     atol * max |want|, over the gradients ``got`` and ``want``."""
@@ -2057,19 +2593,20 @@ def phase_lm_backward(dev, ops, ref):
     from repro_torch.kernels import rglru_scan as rg
     gen = torch.Generator(device=dev).manual_seed(4)
     rows = {}
-    for name, (B, Hq, Hkv, S, hd), dtype, window, cap in BWD_FLASH_CASES:
+    for name, (B, Hq, Hkv, S, hd), dtype, causal, window, cap in \
+            BWD_FLASH_CASES:
         q, k, v, do = (torch.randn((B, S, h, hd), generator=gen, device=dev)
                        .to(dtype) for h in (Hq, Hkv, Hkv, Hq))
         qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
-        out, lse = fa.flash_attention(qt, kt, vt, True, window, cap,
+        out, lse = fa.flash_attention(qt, kt, vt, causal, window, cap,
                                       return_lse=True)
 
         def kernel(lse=lse):
-            return fa.flash_attention_backward(qt, kt, vt, out, dot, True,
+            return fa.flash_attention_backward(qt, kt, vt, out, dot, causal,
                                                window, cap, lse=lse)
 
         def plain(w=window):
-            return ref.flash_attention_backward(qt, kt, vt, out, dot, True,
+            return ref.flash_attention_backward(qt, kt, vt, out, dot, causal,
                                                 w, cap)
 
         got, want = kernel(), plain()
@@ -2086,7 +2623,7 @@ def phase_lm_backward(dev, ops, ref):
             # a kernel whose band edge sat one tile off would give
             off = bwd_excess(plain(window - BWD_KEY_TILE), want, rtol, atol)
         del want
-        pairs = B * Hq * band_pairs(S, S, True, window)
+        pairs = B * Hq * band_pairs(S, S, causal, window)
         rate = (BF16_OPS_PER_S if dtype == torch.bfloat16
                 else F32_TC_OPS_PER_S)
         nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
@@ -2095,9 +2632,7 @@ def phase_lm_backward(dev, ops, ref):
                f"{bound(nbytes, ops=2.5 * 4 * hd * pairs)[0]:.5f})")
         library = None
         if not cap:   # one PyTorch call's backward computes the same thing
-            i = torch.arange(S, device=dev)
-            band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :]
-                                                 < (window or S + 1))
+            band = band_mask(S, causal, window, dev)
             lq, lk, lv = (x.detach().requires_grad_(True)
                           for x in (qt, kt, vt))
             lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=band,
@@ -2112,7 +2647,8 @@ def phase_lm_backward(dev, ops, ref):
                    bound_by=by, library_ms=library)
         ok = ratio <= 1.0 and ratio_nolse <= 1.0
         print(f"flash_attention_backward {name}: q {tuple(q.shape)} k "
-              f"{tuple(k.shape)} {str(dtype)[6:]} window={window} "
+              f"{tuple(k.shape)} {str(dtype)[6:]} causal={causal} "
+              f"window={window} "
               f"softcap={cap} pairs={pairs} max_abs_err={err:.3e} limit "
               f"|err| <= {rtol:g}*|plain| + {atol:g}*max|plain| (largest "
               f"share of it {ratio:.3f}; without the forward's LSE "
@@ -2141,14 +2677,14 @@ def phase_lm_backward(dev, ops, ref):
             rows["flash_attention_backward"] = row
             # autograd through ops on the card gives the kernel's gradients
             live = [x.detach().requires_grad_(True) for x in (q, k, v)]
-            o = ops.flash_attention(*live, causal=True, window=window,
+            o = ops.flash_attention(*live, causal=causal, window=window,
                                     softcap=cap)
             auto = torch.autograd.grad(o, live, do)
             lt = [x.detach().transpose(1, 2) for x in live]
-            _, lse_live = fa.flash_attention(*lt, True, window, cap,
+            _, lse_live = fa.flash_attention(*lt, causal, window, cap,
                                              return_lse=True)
             mine = fa.flash_attention_backward(
-                *lt, o.detach().transpose(1, 2), dot, True, window, cap,
+                *lt, o.detach().transpose(1, 2), dot, causal, window, cap,
                 lse=lse_live)
             same = o.grad_fn is not None and all(
                 torch.equal(a, b.transpose(1, 2)) for a, b in zip(auto, mine))
@@ -2261,15 +2797,10 @@ def _train_report_line(rep):
 
 
 def phase_training(dev, kernels, cfg):
-    """LM training with CPR over the token rows (phase 7): (a) the main
-    path at full width in three modes, (b) one pattern period's loss and
-    gradients at full width, card against CPU, (c) the reduced config's
-    training run, card against CPU."""
-    import dataclasses
-
+    """LM training with CPR over the token rows (phase 7 (a)): the main
+    path at full width in three modes."""
     from repro_torch.launch.train import train
-    from repro_torch.models import transformer as T
-    from repro_torch.tree import leaves, tree_map, unflatten
+    from repro_torch.tree import leaves
     kinds = cfg.layer_kinds
     per_step = {"flash_attention": sum(k != "rglru" for k in kinds),
                 "rglru_scan": sum(k == "rglru" for k in kinds)}
@@ -2336,7 +2867,19 @@ def phase_training(dev, kernels, cfg):
         del hist
     print(f"train: launches of the three runs {json.dumps(totals)}")
     torch.cuda.empty_cache()
+    return totals
 
+
+def phase_training_agreement(dev, kernels, cfg):
+    """Phase 7 (b): one pattern period's loss and gradients at full width,
+    card against CPU; (c) the reduced config's training run, card against
+    CPU.  They print no time, so they run before (a), beside a
+    background figure."""
+    import dataclasses
+
+    from repro_torch.launch.train import train
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves, tree_map, unflatten
     # (b) one pattern period at full width in f32: card against CPU
     t0 = time.perf_counter()
     one = dataclasses.replace(cfg, num_layers=len(cfg.block_pattern),
@@ -2403,7 +2946,6 @@ def phase_training(dev, kernels, cfg):
     if not ok:
         fail("the reduced model's training on the card disagrees with the "
              "CPU's")
-    return totals
 
 
 def main() -> None:
@@ -2455,8 +2997,11 @@ def main() -> None:
     from repro_torch.configs.dlrm import DLRM_KAGGLE
     launches = phase_main_path(dev, kernels, DLRM_KAGGLE)
     phase_done("3")
+    # beside phase 4, which prints no time
+    background = [start_fleet_figure(n) for n in ("fig16", "fig17")]
     phase_agreement(dev)
     torch.cuda.empty_cache()
+    harness_hashes = sum(finish_fleet_figure(h) for h in background)
     phase_done("4")
     # the LM kernels' checks and one-call times before the harness and the
     # fleets (phases 5-6), whose processes and threads leave the host
@@ -2470,13 +3015,16 @@ def main() -> None:
     phase_harness(dev, kernels, DLRM_KAGGLE)
     torch.cuda.empty_cache()
     phase_done("5")
-    harness_hashes = phase_fleet_figures(dev, kernels, DLRM_KAGGLE)
+    harness_hashes += phase_fleet_figures(dev, kernels, DLRM_KAGGLE)
     torch.cuda.empty_cache()
     phase_done("6")
     print(f"python threads alive: {threading.active_count()}")
 
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.launch.profile_serve import ARCH
+    from repro_torch.models import transformer as T
     lm = get_config(ARCH)
     params, lm_launches = phase_serving(dev, kernels, lm)
     phase_done("3b")
@@ -2484,18 +3032,43 @@ def main() -> None:
     del params
     torch.cuda.empty_cache()
     phase_done("4b")
+    from repro_torch.launch.profile_encoder import ARCH as HUBERT_ARCH
+    hubert = get_config(HUBERT_ARCH)
+    hubert_launches = phase_hubert(dev, kernels, hubert)
+    phase_done("3h")
+    vlm = dataclasses.replace(get_config(VLM_ARCH), num_layers=VLM_LAYERS)
+    params, vlm_launches = phase_vlm_serving(dev, kernels, vlm)
+    del params                  # 4v draws them again, after the MoE's
+    torch.cuda.empty_cache()
+    phase_done("3v")
     moe = get_config(MOE_ARCH)
     params, moe_launches = phase_moe_serving(dev, kernels, moe)
     phase_done("3m")
+    # beside 4m, 4h, 4v and 7 (b, c), which print no time
+    fig15 = start_fleet_figure("fig15")
     phase_moe_agreement(dev, params, moe)
-    del params                  # phase 7's peak is 60.75 GB
+    del params
     torch.cuda.empty_cache()
     phase_done("4m")
+    phase_hubert_agreement(dev, kernels, hubert)
+    phase_done("4h")
+    params = T.init_model(vlm, torch.Generator(device=dev).manual_seed(0),
+                          dev)
+    phase_vlm_agreement(dev, params, vlm)
+    del params                  # phase 7's peak is 60.75 GB
+    torch.cuda.empty_cache()
+    phase_done("4v")
+    phase_training_agreement(dev, kernels, lm)
+    phase_done("7 (b, c)")
+    harness_hashes += finish_fleet_figure(fig15)
+    phase_done("6 (fig15's fleets)")
     train_launches = phase_training(dev, kernels, lm)
     phase_done("7")
-    # launches on the main paths: the DLRM's (phase 3), serving's (3b, 3m)
-    # and training's (7 (a)), each counted from 0 around its run
-    for counts in (lm_launches, moe_launches, train_launches):
+    # launches on the main paths: the DLRM's (phase 3), serving's (3b, 3m,
+    # 3v), the audio encoder's (3h) and training's (7 (a)), each counted
+    # from 0 around its run
+    for counts in (lm_launches, moe_launches, vlm_launches, hubert_launches,
+                   train_launches):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
 
@@ -2529,4 +3102,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--fleet-figure"]:
+        fleet_figure_main(*sys.argv[2:4])
+    else:
+        main()

@@ -2,9 +2,9 @@
 
 ``get_config(arch_id)`` / ``list_archs()`` cover the language models the
 port runs so far: the Griffin and Gemma-2 families, the dense Qwen2,
-Qwen2.5 and Phi-3 models and the Qwen MoE models.  The reference's
-xLSTM, Qwen2-VL and HuBERT come with their slices.  The DLRM
-configurations live in ``configs.dlrm``.
+Qwen2.5 and Phi-3 models, the Qwen MoE models, Qwen2-VL (M-RoPE, patch
+embeddings) and HuBERT (an audio encoder).  The reference's xLSTM comes
+with its slice.  The DLRM configurations live in ``configs.dlrm``.
 """
 from __future__ import annotations
 
@@ -21,6 +21,8 @@ _MODULES = {
     "qwen2-7b": "qwen2_7b",
     "qwen2.5-14b": "qwen2_5_14b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
+    "hubert-xlarge": "hubert_xlarge",
 }
 
 

@@ -1,6 +1,7 @@
 // Flash attention (forward), f32, for Hopper (sm_90a): online softmax over
 // key tiles with causal / sliding-window masks, the gemma2 logit softcap
-// and GQA/MQA (kv head = h / group), queries right-aligned to the KV tail.
+// and GQA/MQA (kv head = h / group), queries right-aligned to the KV tail,
+// hd in {32, 64, 80, 128, 256}, bidirectional (causal = 0) or causal.
 // bf16 inputs go to the wgmma kernel of flash_attention_bf16.cu.
 //
 // Replaces: src/repro/kernels/flash_attention.py, function flash_attention
@@ -273,7 +274,7 @@ extern "C" {
 
 // q (B, Hq, Sq, hd), k/v (B, Hkv, Skv, hd), o like q, all f32, each
 // addressed by the 12 element strides in `strides` (q, k, v, o; batch,
-// head, seq); hd in {32, 64, 128, 256} is contiguous; every pointer and
+// head, seq); hd in {32, 64, 80, 128, 256} is contiguous; every pointer and
 // stride is a multiple of 16 bytes.  o: NULL for the log-sum-exp alone.
 // lse: NULL, or f32 (B, Hq, Sq) for each row's log-sum-exp.  Returns a
 // cudaError_t code (0 on success).
@@ -300,6 +301,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                         causal, window, softcap, s);
     case 64:
       return launch<64>(qf, kf, vf, of, lf, st, B, Hq, group, Sq, Skv, scale,
+                        causal, window, softcap, s);
+    case 80:    // HuBERT: 5 k-steps of 16, 10 output n-tiles
+      return launch<80>(qf, kf, vf, of, lf, st, B, Hq, group, Sq, Skv, scale,
                         causal, window, softcap, s);
     case 128:
       return launch<128>(qf, kf, vf, of, lf, st, B, Hq, group, Sq, Skv, scale,

@@ -1,6 +1,7 @@
 // Flash attention backward for Hopper (sm_90a), f32: dQ, dK and dV of the
 // forward of flash_attention.cu (causal and sliding-window masks, the
-// gemma2 logit softcap, GQA/MQA, queries right-aligned to the KV tail),
+// gemma2 logit softcap, GQA/MQA, queries right-aligned to the KV tail, hd
+// in {32, 64, 80, 128, 256}, bidirectional (causal = 0) or causal),
 // every product on the tensor cores in 3xTF32 (tf32x3.cuh: each operand
 // split hi / lo, ~21-22 bits a product, sums in f32).  bf16 inputs go to
 // the wgmma kernels of flash_attention_backward_bf16.cu.
@@ -272,7 +273,7 @@ __global__ void __launch_bounds__(kThreadsQ, 1)
     const float* kc = Ks + 2 * t * LR + g;              // K's B, by columns
 
     // this warp's half of the contraction over hd: S = Q K^T and dP =
-    // dO V^T (16 x 16), two accumulator sets on alternate steps
+    // dO V^T (16 x 16), two accumulator sets on alternate 8-column steps
     float s[2][2][4], dp[2][2][4];
 #pragma unroll
     for (int u = 0; u < 2; ++u)
@@ -281,7 +282,7 @@ __global__ void __launch_bounds__(kThreadsQ, 1)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[u][j][e] = dp[u][j][e] = 0.f;
 #pragma unroll 2
-    for (int c = c0; c < c0 + kHalf; c += 16) {
+    for (int c = c0; c < c0 + kHalf / 16 * 16; c += 16) {
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const FragA aq = frag_a<LR>(qa, c + 8 * u);
@@ -291,6 +292,17 @@ __global__ void __launch_bounds__(kThreadsQ, 1)
           mma3(s[u][j], aq, frag_b_rows(kb + 8 * j * LR, c + 8 * u));
           mma3(dp[u][j], ag, frag_b_rows(vb + 8 * j * LR, c + 8 * u));
         }
+      }
+    }
+    if constexpr (kHalf % 16 != 0) {
+      // hd = 80: a half of 40 columns ends in a fifth 8-column step
+      const int c = c0 + kHalf - 8;
+      const FragA aq = frag_a<LR>(qa, c);
+      const FragA ag = frag_a<LR>(ga, c);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        mma3(s[0][j], aq, frag_b_rows(kb + 8 * j * LR, c));
+        mma3(dp[0][j], ag, frag_b_rows(vb + 8 * j * LR, c));
       }
     }
     // the pair swaps halves; both add them in one order (low half first),
@@ -558,6 +570,7 @@ __global__ void __launch_bounds__(kThreadsKV, 1)
 // ---------------------------------------------------------------------
 template <int HD>
 constexpr int kSumBlocks = 2 * kKT * HD / 4 / 256;   // blocks a key tile
+static_assert(2 * kKT * 80 / 4 % 256 == 0, "whole sum blocks at hd = 80");
 
 template <int HD>
 __global__ void __launch_bounds__(256)
@@ -713,7 +726,7 @@ long long flash_attention_bwd_scratch(int B, int Hq, int Hkv, int Sq, int Skv,
 // q (B, Hq, Sq, hd), k/v (B, Hkv, Skv, hd), o and dout like q, dq like q,
 // dk/dv like k, all f32, each addressed by the 24 element strides in
 // `strides` (q, k, v, o, dout, dq, dk, dv; batch, head, seq); hd in {32,
-// 64, 128, 256} is contiguous; every pointer and stride is a multiple of
+// 64, 80, 128, 256} is contiguous; every pointer and stride is a multiple of
 // 16 bytes.  lse: the forward's f32 (B, Hq, Sq) log-sum-exp (contiguous).
 // scratch: flash_attention_bwd_scratch(...) f32 values.  Returns a
 // cudaError_t code (0 on success).  Two or three launches, in order.
@@ -747,6 +760,9 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
                         Hkv, s);
     case 64:
       return launch<64>(qf, kf, vf, of, gf, lf, dqf, dkf, dvf, w, st, p, B,
+                        Hkv, s);
+    case 80:    // HuBERT: dq's halves of 40 columns, 5 n-tiles each
+      return launch<80>(qf, kf, vf, of, gf, lf, dqf, dkf, dvf, w, st, p, B,
                         Hkv, s);
     case 128:
       return launch<128>(qf, kf, vf, of, gf, lf, dqf, dkf, dvf, w, st, p, B,

@@ -1,9 +1,10 @@
 // Flash attention backward for bf16 on Hopper's tensor cores (sm_90a):
 // dQ, dK and dV of flash_attention_bf16.cu's forward (causal and
 // sliding-window masks, the gemma2 logit softcap, GQA/MQA, queries
-// right-aligned to the KV tail, ragged Sq and Skv, hd in {32, 64, 128,
-// 256}, (B, H, S, hd) tensors addressed by their strides).  f32 inputs go
-// to the FMA kernels of flash_attention_backward.cu.
+// right-aligned to the KV tail, ragged Sq and Skv, hd in {32, 64, 80, 128,
+// 256}, (B, H, S, hd) tensors addressed by their strides, bidirectional
+// (causal = 0) or causal).  f32 inputs go to the 3xTF32 kernels of
+// flash_attention_backward.cu.
 //
 // Replaces: the gradient XLA derives for the reference's jnp attention
 // (src/repro/models/layers.py, attention_forward with use_flash=False,
@@ -63,7 +64,12 @@
 //       end warpgroup 0 adds warpgroup 1's dQ (a fixed order).
 // (b) and (d) walk only the tiles the band touches and mask element by
 // element only on the diagonal, window-edge and ragged tiles; TMA reads
-// rows past Sq or Skv as zeros.
+// rows past Sq or Skv as zeros.  Head dim 80 (HuBERT) runs in 128-wide
+// tiles whose columns 80..127 TMA reads as zeros (the forward's scheme):
+// S, dP and D do not change, dV, dK and dQ come out 0 there, and only the
+// first 80 columns are stored or kept as partials.  1/sqrt(80) is not a
+// power of two: the scale multiplies the f32 scores and the f32 dK and dQ
+// sums, never a bf16 operand.
 
 #include <math.h>
 
@@ -147,9 +153,10 @@ __device__ __forceinline__ int acc_row(int t) {
 }
 __device__ __forceinline__ int acc_col(int t) { return 2 * (t % 4); }
 
-// a 64 x HD accumulator times `mul` -> bf16 rows [row0, row0 + 64) of
-// out (row stride rs), rows at or past `limit` skipped
-template <int HD>
+// the first W columns of a 64 x HD accumulator times `mul` -> bf16 rows
+// [row0, row0 + 64) of out (row stride rs), rows at or past `limit`
+// skipped
+template <int HD, int W>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long rs,
                                            int row0, int limit, int t,
                                            const float (&acc)[HD / 2],
@@ -157,7 +164,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long rs,
   const int row = row0 + acc_row(t);
   __nv_bfloat16* p = out + row * rs + acc_col(t);
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
+  for (int j = 0; j < W / 8; ++j) {
     if (row < limit) {
       *reinterpret_cast<uint32_t*>(p + 8 * j) =
           pack_bf16(acc[4 * j] * mul, acc[4 * j + 1] * mul);
@@ -246,9 +253,10 @@ __global__ void __launch_bounds__(256)
 }
 
 // ---------------------------------------------------------------------
-// (b) per run of a key tile's steps: dK and dV
+// (b) per run of a key tile's steps: dK and dV (HD the tile's width, W
+// the head dim)
 // ---------------------------------------------------------------------
-template <int HD>
+template <int HD, int W>
 __global__ void __launch_bounds__(384, 1)
     flash_bwd_dkdv(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
@@ -432,18 +440,18 @@ __global__ void __launch_bounds__(384, 1)
     if (runs == 1) {
       __nv_bfloat16* dst = wg == 0 ? dv + b * x[DV] + hk * x[DV + 1]
                                    : dk + b * x[DK] + hk * x[DK + 1];
-      store_rows<HD>(dst, wg == 0 ? x[DV + 2] : x[DK + 2], k0, sh.Skv, t, acc,
-                     wg == 0 ? 1.f : sh.scale);
+      store_rows<HD, W>(dst, wg == 0 ? x[DV + 2] : x[DK + 2], k0, sh.Skv, t,
+                        acc, wg == 0 ? 1.f : sh.scale);
     } else {
-      // f32 partials, [run][dV, dK][key][column]
+      // f32 partials, [run][dV, dK][key][column < W]
       float* dst = partial +
                    (((((long long)b * gridDim.y + hk) * sh.n_runs + blockIdx.x) *
-                         2 + wg) * 64 + kr) * HD + kc;
+                         2 + wg) * 64 + kr) * W + kc;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
+      for (int j = 0; j < W / 8; ++j) {
         *reinterpret_cast<float2*>(dst + 8 * j) =
             make_float2(acc[4 * j], acc[4 * j + 1]);
-        *reinterpret_cast<float2*>(dst + 8 * HD + 8 * j) =
+        *reinterpret_cast<float2*>(dst + 8 * W + 8 * j) =
             make_float2(acc[4 * j + 2], acc[4 * j + 3]);
       }
     }
@@ -496,7 +504,7 @@ __global__ void __launch_bounds__(256)
 // ---------------------------------------------------------------------
 // (d) per query tile: dQ over the band
 // ---------------------------------------------------------------------
-template <int HD>
+template <int HD, int W>
 __global__ void __launch_bounds__(384, 1)
     flash_bwd_dq(const __grid_constant__ CUtensorMap qmap,
                  const __grid_constant__ CUtensorMap kmap,
@@ -641,8 +649,8 @@ __global__ void __launch_bounds__(384, 1)
 #pragma unroll
       for (int e = 0; e < HD / 2; ++e) acc[e] += hand[e * 128];
       const long long* x = st.x;
-      store_rows<HD>(dq + b * x[DQ] + h * x[DQ + 1], x[DQ + 2], q0, sh.Sq, t,
-                     acc, sh.scale);
+      store_rows<HD, W>(dq + b * x[DQ] + h * x[DQ + 1], x[DQ + 2], q0, sh.Sq,
+                        t, acc, sh.scale);
     }
   }
 }
@@ -720,7 +728,7 @@ Plan plan_for(int B, int Hq, int Hkv, int Sq, int Skv, int hd, int causal,
   return plan;
 }
 
-template <int HD>
+template <int HD, int W = HD>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, void* dq, void* dk, void* dv,
            float* scratch, const Strides& st, const Plan& p, int B, int Hkv,
@@ -730,10 +738,10 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const long long* x = st.x;
   CUtensorMap qm, km, vm, dom;
   if (!encoder()) return (int)cudaErrorNotSupported;
-  if (!make_map<HD>(&qm, q, sh.Sq, sh.Hq, B, x + Q) ||
-      !make_map<HD>(&km, k, sh.Skv, Hkv, B, x + K) ||
-      !make_map<HD>(&vm, v, sh.Skv, Hkv, B, x + V) ||
-      !make_map<HD>(&dom, dout, sh.Sq, sh.Hq, B, x + DO)) {
+  if (!make_map<HD, W>(&qm, q, sh.Sq, sh.Hq, B, x + Q) ||
+      !make_map<HD, W>(&km, k, sh.Skv, Hkv, B, x + K) ||
+      !make_map<HD, W>(&vm, v, sh.Skv, Hkv, B, x + V) ||
+      !make_map<HD, W>(&dom, dout, sh.Sq, sh.Hq, B, x + DO)) {
     return (int)cudaErrorInvalidValue;
   }
   float* lse2 = scratch;
@@ -743,14 +751,14 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   auto* dkp = static_cast<__nv_bfloat16*>(dk);
   auto* dvp = static_cast<__nv_bfloat16*>(dv);
 
-  flash_bwd_prep<HD><<<(unsigned)((p.stat_rows + 7) / 8), 256, 0, s>>>(
+  flash_bwd_prep<W><<<(unsigned)((p.stat_rows + 7) / 8), 256, 0, s>>>(
       static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout), lse, lse2, delta, st, sh,
       p.stat_rows);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
-  auto kb = flash_bwd_dkdv<HD>;
+  auto kb = flash_bwd_dkdv<HD, W>;
   e = cudaFuncSetAttribute(kb, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            C::kSmemKV);
   if (e != cudaSuccess) return (int)e;
@@ -760,14 +768,14 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (e != cudaSuccess) return (int)e;
 
   if (p.partials) {
-    flash_bwd_dkdv_sum<HD>
-        <<<dim3(sh.n_kt * (kSumThreads<HD> / 256), Hkv, B), 256, 0, s>>>(
+    flash_bwd_dkdv_sum<W>
+        <<<dim3(sh.n_kt * (kSumThreads<W> / 256), Hkv, B), 256, 0, s>>>(
         partial, dkp, dvp, st, sh);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
 
-  auto kd = flash_bwd_dq<HD>;
+  auto kd = flash_bwd_dq<HD, W>;
   e = cudaFuncSetAttribute(kd, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            C::kSmemQ);
   if (e != cudaSuccess) return (int)e;
@@ -794,7 +802,7 @@ long long flash_attention_bf16_bwd_scratch(int B, int Hq, int Hkv, int Sq,
 // q (B, Hq, Sq, hd), k/v (B, Hkv, Skv, hd), o and dout like q, dq like q,
 // dk/dv like k, all bf16, each addressed by the 24 element strides in
 // `strides` (q, k, v, o, dout, dq, dk, dv; batch, head, seq); hd in {32,
-// 64, 128, 256} is contiguous; every pointer and stride is a multiple of
+// 64, 80, 128, 256} is contiguous; every pointer and stride is a multiple of
 // 16 bytes.  lse: the forward's f32 (B, Hq, Sq) log-sum-exp (contiguous).
 // scratch: flash_attention_bf16_bwd_scratch(...) f32 values.  Returns a
 // cudaError_t code (0 on success).  Three or four launches, in order.
@@ -819,6 +827,9 @@ int flash_attention_bf16_bwd(const void* q, const void* k, const void* v,
       return launch<32>(q, k, v, o, dout, l, dq, dk, dv, w, st, p, B, Hkv, s);
     case 64:
       return launch<64>(q, k, v, o, dout, l, dq, dk, dv, w, st, p, B, Hkv, s);
+    case 80:    // in 128-wide tiles, columns 80..127 zero
+      return launch<128, 80>(q, k, v, o, dout, l, dq, dk, dv, w, st, p, B, Hkv,
+                             s);
     case 128:
       return launch<128>(q, k, v, o, dout, l, dq, dk, dv, w, st, p, B, Hkv, s);
     case 256:

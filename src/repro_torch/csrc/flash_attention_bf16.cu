@@ -1,9 +1,10 @@
 // Flash attention (forward) for bf16 on Hopper's tensor cores (sm_90a):
 // online softmax over 64-key tiles with causal / sliding-window masks, the
 // gemma2 logit softcap and GQA/MQA (kv head = h / group), queries
-// right-aligned to the KV tail, ragged Sq and Skv, hd in {32, 64, 128,
-// 256}, (B, H, S, hd) tensors addressed by their strides.  f32 inputs go to
-// the FMA kernel of flash_attention.cu.
+// right-aligned to the KV tail, ragged Sq and Skv, hd in {32, 64, 80, 128,
+// 256}, (B, H, S, hd) tensors addressed by their strides, bidirectional
+// (causal = 0) or causal.  f32 inputs go to the 3xTF32 kernel of
+// flash_attention.cu.
 //
 // Replaces: src/repro/kernels/flash_attention.py, function flash_attention
 // (the Pallas kernel: grid (B, Hq, Sq/bq, Skv/bk), the running (m, l, acc)
@@ -12,7 +13,7 @@
 // Contract (that kernel's _kernel and src/repro/kernels/ref.py
 // flash_attention): s = (q.k) / sqrt(hd) in f32 (bf16 products are exact
 // in f32; the scale is applied to the f32 scores, not to q in bf16, since
-// at hd = 32 and 128 it is not a power of two); optionally
+// at hd = 32, 80 and 128 it is not a power of two); optionally
 // s = tanh(s / cap) * cap, before the mask; query i sits at position
 // i + Skv - Sq, key j at j; causal keeps j <= pos(i), a window w keeps
 // pos(i) - j < w; masked scores take no part (p = 0); the output is
@@ -47,6 +48,12 @@
 //   their shared K and V (4 MB per batch at the serving shape).
 // - TMA fills rows past Sq or Skv with zeros; those keys are masked and
 //   those rows are not stored.
+// - Head dim 80 (HuBERT) runs in the 128-wide tiles: the tensor maps
+//   declare the true inner dimension, so TMA fills columns 80..127 with
+//   zeros; Q.K^T and the row statistics do not change, P.V gives zeros
+//   there, and only the first 80 columns are stored.  The tile does 1.6
+//   times the tensor-core work of an exact one (wgmma has no N = 80 for
+//   P.V and the swizzle chunks are 64 wide).
 // - Given an lse pointer, each row's natural-log log-sum-exp goes there
 //   (f32, (B, Hq, Sq)) for the backward: (m + log2 l) ln 2 from the running
 //   max and sum in log2 units.  Without an output pointer the kernel
@@ -74,8 +81,9 @@ struct Fwd {
 
 // Grid (Hq, query tiles of kBQ rows, B), longest tiles first.  Scores are
 // kept in log2 units: x = s * scale * log2(e) (or the softcapped score
-// times log2(e)), p = exp2(x - m).
-template <int HD>
+// times log2(e)), p = exp2(x - m).  HD is the tile's width, W <= HD the
+// head dim (the columns stored).
+template <int HD, int W>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_bf16(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
@@ -262,7 +270,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (o == nullptr) return;
     __nv_bfloat16* out = o + b * ob + h * oh + row * os + kc;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < W / 8; ++j) {
       if (row < Sq) {
         *reinterpret_cast<uint32_t*>(out + 8 * j) =
             pack_bf16(acc[4 * j] / d0, acc[4 * j + 1] / d0);
@@ -275,19 +283,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int HD>
+template <int HD, int W = HD>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const long long* st, int B, int Hq, int Hkv, int Sq, int Skv,
            float scale, int causal, int window, float softcap,
            cudaStream_t s) {
   CUtensorMap qm, km, vm;
   if (!encoder()) return (int)cudaErrorNotSupported;
-  if (!make_map<HD>(&qm, q, Sq, Hq, B, st) ||
-      !make_map<HD>(&km, k, Skv, Hkv, B, st + 3) ||
-      !make_map<HD>(&vm, v, Skv, Hkv, B, st + 6)) {
+  if (!make_map<HD, W>(&qm, q, Sq, Hq, B, st) ||
+      !make_map<HD, W>(&km, k, Skv, Hkv, B, st + 3) ||
+      !make_map<HD, W>(&vm, v, Skv, Hkv, B, st + 6)) {
     return (int)cudaErrorInvalidValue;
   }
-  auto kern = flash_fwd_bf16<HD>;
+  auto kern = flash_fwd_bf16<HD, W>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Fwd<HD>::kSmem);
   if (err != cudaSuccess) return (int)err;
@@ -304,7 +312,7 @@ extern "C" {
 
 // q (B, Hq, Sq, hd), k/v (B, Hkv, Skv, hd), o like q, all bf16, each
 // addressed by the 12 element strides in `strides` (q, k, v, o; batch,
-// head, seq); hd in {32, 64, 128, 256} is contiguous; every pointer and
+// head, seq); hd in {32, 64, 80, 128, 256} is contiguous; every pointer and
 // stride is a multiple of 16 bytes.  lse: NULL, or f32 (B, Hq, Sq) for
 // each row's log-sum-exp; o may be NULL when lse is not (the LSE alone).
 // Returns a cudaError_t code (0 on success).
@@ -325,6 +333,9 @@ int flash_attention_bf16_fwd(const void* q, const void* k, const void* v,
     case 64:
       return launch<64>(q, k, v, o, l, strides, B, Hq, Hkv, Sq, Skv, scale,
                         causal, window, softcap, s);
+    case 80:    // in 128-wide tiles, columns 80..127 zero
+      return launch<128, 80>(q, k, v, o, l, strides, B, Hq, Hkv, Sq, Skv,
+                             scale, causal, window, softcap, s);
     case 128:
       return launch<128>(q, k, v, o, l, strides, B, Hq, Hkv, Sq, Skv, scale,
                          causal, window, softcap, s);

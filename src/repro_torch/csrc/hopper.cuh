@@ -311,14 +311,17 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A (hd, S, H, B) map of a bf16 (B, H, S, hd) tensor with element strides
+// A (W, S, H, B) map of a bf16 (B, H, S, W) tensor with element strides
 // st = (batch, head, seq), boxes of (Tile<HD>::kCols, 64, 1, 1) in its
-// swizzle; rows past S read 0.
-template <int HD>
+// swizzle; rows past S read 0, and so do columns past the head dim W when
+// it is narrower than the tile (W = 80 in a 128-wide tile: the second box
+// reads columns 64..79 and zeros).
+template <int HD, int W = HD>
 bool make_map(CUtensorMap* map, const void* ptr, long long S, long long H,
               long long B, const long long* st) {
+  static_assert(W <= HD && W % 8 == 0, "head dim within the tile");
   using T = Tile<HD>;
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)S, (cuuint64_t)H,
+  const cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)S, (cuuint64_t)H,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
                                  (cuuint64_t)st[0] * 2};

@@ -1,5 +1,6 @@
 """Flash attention on Hopper, forward and backward: online softmax with
-causal / sliding-window masks, the gemma2 logit softcap and GQA/MQA.
+causal / sliding-window masks or none (bidirectional, ``causal=False``),
+the gemma2 logit softcap and GQA/MQA.
 
 Replaces ``repro.kernels.flash_attention.flash_attention`` (Pallas,
 forward only).  bf16 inputs (the serving and training paths) go to the
@@ -30,7 +31,9 @@ import torch
 from repro_torch.kernels import (LAUNCHES, _build, check_launch, launch_on,
                                  require, stream_of)
 
-HEAD_DIMS = (32, 64, 128, 256)
+# head dim 80 (HuBERT) runs in the bf16 kernels' 128-wide tiles, the
+# columns past 80 read as zeros
+HEAD_DIMS = (32, 64, 80, 128, 256)
 # (q, k, v, o, lse, strides, B, Hq, Hkv, Sq, Skv, hd, scale, causal,
 #  window, softcap, stream) -> CUDA error code; by dtype: (library,
 #  function)

@@ -1,16 +1,20 @@
-"""Core layers of the language models: norms, RoPE, GQA attention, MLPs.
+"""Core layers of the language models: norms, RoPE and M-RoPE, GQA
+attention, MLPs.
 
 The port of ``repro.models.layers``: ``init_*`` return dicts of tensors
 with the reference's names and shapes, ``apply`` functions are plain.
 Full-sequence attention always goes through ``kernels.ops.flash_attention``
 (the CUDA kernels, forward and backward, for CUDA tensors; the plain
-versions for CPU ones), so there is no ``use_flash`` switch; the decode step attends over its cache
-with plain tensor code, as the reference does.
+versions for CPU ones), so there is no ``use_flash`` switch; the decode
+step attends over its cache with plain tensor code, as the reference does.
 
-Differences from the reference, each raised rather than run: M-RoPE
-(Qwen2-VL) and bidirectional attention (HuBERT) come with their slices,
-and positions must be contiguous (``arange(S)``), the flash kernel's
-contract.
+Queries and keys are rotated by the positions given (any values: (B, S)
+for RoPE, the (3, B, S) t/h/w streams for Qwen2-VL's M-RoPE), and
+attention is causal or bidirectional (HuBERT) as the config says.  The
+causal mask goes by index, query i seeing key j <= i, whatever the
+positions: the reference's kernel path (``use_flash=True``) and Qwen2-VL
+mask so; the reference's jnp path masks by the first position stream
+instead, which differs only where positions are not ``arange(S)``.
 """
 from __future__ import annotations
 
@@ -67,44 +71,64 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x, positions, theta: float):
-    """x: (..., S, H, hd); positions broadcastable to (..., S).  Rotates
-    split halves (not interleaved pairs), angles in f32."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)        # (hd/2,)
-    ang = positions[..., None].float() * freqs              # (..., S, hd/2)
-    ang = ang[..., None, :]                                 # (..., S, 1, hd/2)
+def _rotate(x, ang):
+    """x (..., S, H, hd) rotated by the f32 angles ``ang`` (..., S, 1,
+    hd/2): split halves (not interleaved pairs)."""
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 
 
-def contiguous_positions(positions, S: int, device=None):
-    """The (1, S) positions ``arange(S)``.  A given ``positions`` must equal
-    it (broadcast over the batch), or this raises: the flash kernel implies
-    contiguous positions."""
-    want = torch.arange(S, device=device)
-    if positions is not None and (positions.shape[-1] != S or not bool(
-            (positions.to(want) == want).all())):
-        raise NotImplementedError(
-            "positions other than arange(S) are not supported: the flash "
-            "attention kernel implies contiguous positions")
-    return want[None, :]
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, hd); positions broadcastable to (..., S).  Angles in
+    f32."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)        # (hd/2,)
+    ang = positions[..., None].float() * freqs              # (..., S, hd/2)
+    return _rotate(x, ang[..., None, :])
+
+
+def apply_mrope(x, positions, theta: float, sections=(16, 24, 24)):
+    """Qwen2-VL's multimodal RoPE.  x: (..., S, H, hd); positions (3, ...,
+    S), the t, h and w streams.  ``sections`` count the half-dim channels
+    each stream rotates, in order, and sum to hd / 2."""
+    hd = x.shape[-1]
+    assert sum(sections) == hd // 2, (sections, hd)
+    freqs = rope_freqs(hd, theta, x.device)                 # (hd/2,)
+    pos = positions.float()
+    parts, lo = [], 0
+    for stream, n in enumerate(sections):   # each channel's own stream
+        parts.append(pos[stream][..., None] * freqs[lo:lo + n])
+        lo += n
+    return _rotate(x, torch.cat(parts, dim=-1)[..., None, :])
+
+
+def mrope_sections(head_dim: int):
+    """The (t, h, w) half-dim channel split of Qwen2-VL (head dim 128 ->
+    16 / 24 / 24)."""
+    half = head_dim // 2
+    t = half // 4
+    rest = half - t
+    return (t, rest // 2, rest - rest // 2)
+
+
+def _position_rotary(q, k, positions, cfg):
+    """q and k rotated by ``positions`` as the config says: M-RoPE over
+    (3, B, S) streams, RoPE over (B, S), or not at all."""
+    if cfg.mrope:
+        sections = mrope_sections(cfg.head_dim)
+        return (apply_mrope(q, positions, cfg.rope_theta, sections),
+                apply_mrope(k, positions, cfg.rope_theta, sections))
+    if cfg.rope_theta > 0:
+        return (apply_rope(q, positions, cfg.rope_theta),
+                apply_rope(k, positions, cfg.rope_theta))
+    return q, k
 
 
 # --------------------------------------------------------------------------
 # attention (GQA, optional sliding window / softcap / KV cache)
 # --------------------------------------------------------------------------
-def _check_attention_config(cfg):
-    if cfg.mrope:
-        raise NotImplementedError("M-RoPE (Qwen2-VL) comes with the VLM slice")
-    if not cfg.causal:
-        raise NotImplementedError(
-            "bidirectional attention (HuBERT) comes with the audio slice")
-
-
 def init_attention(generator, cfg, device=None):
-    _check_attention_config(cfg)
     d, hd = cfg.d_model, cfg.head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
     p = {"wq": dense_init(generator, (d, nq * hd), device=device),
@@ -152,18 +176,17 @@ def _sdpa(q, k, v, mask, softcap=0.0):
     return out.reshape(B, S, Hq, hd).to(q.dtype)
 
 
-def attention_forward(p, x, cfg, kind, positions=None):
-    """Full-sequence causal attention (train / prefill) through the flash
-    kernel.  kind: "attn" (global) or "local" (sliding window)."""
-    _check_attention_config(cfg)
+def attention_forward(p, x, cfg, kind, positions):
+    """Full-sequence attention (train / prefill) through the flash kernel:
+    causal by index, or bidirectional for an encoder (``cfg.causal``
+    False).  kind: "attn" (global) or "local" (sliding window).
+    positions: (B, S) or (1, S), (3, B, S) under M-RoPE (as
+    ``transformer.embed_inputs`` gives them)."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg)
-    positions = contiguous_positions(positions, S, x.device)
-    if cfg.rope_theta > 0:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    q, k = _position_rotary(q, k, positions, cfg)
     window = cfg.sliding_window if kind == LOCAL_ATTN else 0
-    out = ops.flash_attention(q, k, v, causal=True, window=window,
+    out = ops.flash_attention(q, k, v, causal=cfg.causal, window=window,
                               softcap=cfg.attn_softcap)
     return out.reshape(B, S, -1) @ p["wo"].to(x.dtype)
 
@@ -197,16 +220,16 @@ def _quantize_kv(x):
 
 def attention_decode(p, x, cache, pos: int, cfg, kind):
     """One-token decode step.  x: (B, 1, d); pos: int, the same for the
-    whole batch.  Keys are rotated at insert time so the ring buffer never
+    whole batch (under M-RoPE, for all three streams, as the reference
+    rotates).  Keys are rotated at insert time so the ring buffer never
     re-rotates.  Writes the new token into ``cache`` in place (slot
     pos % W) and returns (y, cache)."""
-    _check_attention_config(cfg)
     B = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg)
-    if cfg.rope_theta > 0:
-        posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-        q = apply_rope(q, posb, cfg.rope_theta)
-        k = apply_rope(k, posb, cfg.rope_theta)
+    posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    if cfg.mrope:
+        posb = posb[None].expand(3, B, 1)
+    q, k = _position_rotary(q, k, posb, cfg)
     W = cache["k"].shape[1]
     slot = pos % W
     if "ks" in cache:

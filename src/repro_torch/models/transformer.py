@@ -1,4 +1,4 @@
-"""Decoder LM assembled from the block zoo (the port of
+"""Decoder or encoder LM assembled from the block zoo (the port of
 ``repro.models.transformer``: prefill, decode and the training loss).
 
 Depth handling keeps the reference's parameter layout: the config's
@@ -25,8 +25,13 @@ recomputed span beside the residual stream, summed in the reference's
 order.
 
 Layer kinds: global and local attention, RG-LRU, and MoE (attention, then
-``models.moe.apply_moe`` on the rmsnorm'd residual).  The xLSTM kinds and
-the audio and vision front ends come with later slices and raise here.
+``models.moe.apply_moe`` on the rmsnorm'd residual).  The xLSTM kinds come
+with a later slice and raise here.  Front ends (stubs, as in the
+reference): an audio model (HuBERT) takes frame embeddings (B, S, d) and
+has no token embedding; a vision model (Qwen2-VL) takes tokens with patch
+embeddings scattered into them and M-RoPE's (3, B, S) positions.  An
+encoder's loss is masked prediction over ``targets`` where
+``target_mask`` is set.
 """
 from __future__ import annotations
 
@@ -101,21 +106,21 @@ def _stacked(generator, cfg: ModelConfig, kind: str, R: int, device):
 
 
 def init_model(cfg: ModelConfig, generator=None, device=None) -> Dict[str, Any]:
-    """Random parameters from the reference's distributions, f32.  The
-    numbers differ from jax's; carry the reference's own across with
+    """Random parameters from the reference's distributions, f32 (an audio
+    model, which takes frame embeddings, has no ``embed``).  The numbers
+    differ from jax's; carry the reference's own across with
     ``params_from_jax`` where they must match."""
-    if cfg.modality_frontend is not None:
-        raise NotImplementedError(f"the {cfg.modality_frontend} front end "
-                                  "comes with its slice")
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     kinds = cfg.layer_kinds
     P = len(cfg.block_pattern)
     R = cfg.num_layers // P
-    params: Dict[str, Any] = {
-        "embed": L.dense_init(generator, (cfg.vocab_size, cfg.d_model),
-                              device=device)}
+    params: Dict[str, Any] = {}
+    if cfg.modality_frontend != "audio":
+        params["embed"] = L.dense_init(generator,
+                                       (cfg.vocab_size, cfg.d_model),
+                                       device=device)
     params["stages"] = tuple(_stacked(generator, cfg, kind, R, device)
                              for kind in cfg.block_pattern)
     params["rest"] = tuple(init_layer(generator, cfg, kinds[R * P + i], device)
@@ -187,13 +192,26 @@ def _embed(params, tokens, cfg: ModelConfig):
 
 
 def embed_inputs(params, batch, cfg: ModelConfig):
-    """batch keys: tokens (B, S) [+ positions, which must be arange(S)]."""
-    if cfg.modality_frontend is not None:
-        raise NotImplementedError(f"the {cfg.modality_frontend} front end "
-                                  "comes with its slice")
-    x = _embed(params, batch["tokens"], cfg)
-    return x, L.contiguous_positions(batch.get("positions"), x.shape[1],
-                                     x.device)
+    """-> (x (B, S, d) in the config's dtype, positions).  batch keys:
+    ``tokens`` (B, S), or ``embeds`` (B, S, d) for an audio model; a
+    vision model's ``patch_embeds`` (B, P, d) replace the token embeddings
+    at ``patch_positions`` (B, P); ``positions`` (B, S), or (3, B, S)
+    under M-RoPE, default ``arange(S)`` (on all three streams)."""
+    if cfg.modality_frontend == "audio":
+        x = batch["embeds"].to(_dtype(cfg))
+    else:
+        x = _embed(params, batch["tokens"], cfg)
+        if cfg.modality_frontend == "vision" and "patch_embeds" in batch:
+            rows = torch.arange(x.shape[0], device=x.device)[:, None]
+            x = x.index_put((rows, batch["patch_positions"].long()),
+                            batch["patch_embeds"].to(x.dtype))
+    positions = batch.get("positions")
+    if positions is None:
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device)[None, :]
+        if cfg.mrope:
+            positions = positions[None].expand(3, B, S)
+    return x, positions
 
 
 def unembed(params, x, cfg: ModelConfig, normed: bool = False):
@@ -307,12 +325,16 @@ def chunked_ce(params, h, targets, mask, cfg: ModelConfig, chunk=1024):
 
 
 def lm_loss(params, batch, cfg: ModelConfig, remat: bool = False):
-    """Next-token cross-entropy, sequence-chunked so the full (B, S, V)
-    logits never exist -> (loss + aux, (loss, aux))."""
+    """Next-token (causal) or masked-prediction (encoder: ``targets``
+    where ``target_mask``, unshifted) cross-entropy, sequence-chunked so
+    the full (B, S, V) logits never exist -> (loss + aux, (loss, aux))."""
     h, aux = forward_hidden(params, batch, cfg, remat)
-    h = h[:, :-1]
-    targets = batch["tokens"][:, 1:]
-    mask = torch.ones(targets.shape, dtype=torch.float32, device=h.device)
+    if cfg.causal:
+        h, targets, mask = h[:, :-1], batch["tokens"][:, 1:], None
+    else:
+        targets, mask = batch["targets"], batch.get("target_mask")
+    mask = (torch.ones(targets.shape, dtype=torch.float32, device=h.device)
+            if mask is None else mask.to(torch.float32))
     loss = chunked_ce(params, h, targets, mask, cfg)
     return loss + aux, (loss, aux)
 

@@ -18,11 +18,12 @@ counts near INT32_MAX, N < seg, empty and invalid pending ids; raw
 of them (values repeated across tiles), a one-slot reservoir, overflow
 with tied and signed-zero scores, a full reservoir that holds every
 candidate; ``rglru_scan`` at the prefill's width and rows of any
-alignment; for the LM path, head dims 32-256, MQA/GQA, windows,
-softcaps, Skv > Sq, ragged lengths, f32 and bf16, the bf16 kernel's tile
-edges, the backward kernels of attention and the scan and the autograd
-path through them, and the reduced models' logits and gradients against
-the CPU.
+alignment; for the LM path, head dims 32-256 (HuBERT's 80 among them,
+bidirectional and causal), MQA/GQA, windows, softcaps, Skv > Sq, ragged
+lengths, f32 and bf16, the bf16 kernel's tile edges, the backward kernels
+of attention and the scan and the autograd path through them, and the
+reduced models' logits and gradients against the CPU (HuBERT's and
+Qwen2-VL's with an image among them).
 """
 import numpy as np
 import pytest
@@ -1029,3 +1030,144 @@ def test_apply_moe_bf16_is_deterministic_and_never_syncs(card):
                          m.num_experts)
     assert int((slot == m.num_experts * C).sum()) > 0      # drops happened
     assert bool(torch.isfinite(got).all())
+
+
+# ----------------------------------------- HuBERT and Qwen2-VL (head dim 80) --
+# head dim 80: the bf16 kernels' 128-wide tiles with columns 80..127 read
+# as zeros, the f32 kernels' five 16-column steps (dQ's halves of 40);
+# bidirectional and causal, ragged Sq = Skv, GQA 2:1, HuBERT's 1,000 frames
+FLASH_HD80_CASES = [
+    # B, Hq, Hkv, Sq, Skv, hd, causal, window, softcap
+    (2, 16, 16, 200, 200, 80, False, 0, 0.0),      # bidirectional, ragged
+    (1, 4, 2, 129, 129, 80, True, 0, 0.0),         # causal, GQA 2:1, ragged
+    (1, 4, 2, 64, 64, 80, False, 0, 0.0),          # bidirectional GQA, a tile
+    (1, 2, 1, 100, 230, 80, True, 64, 0.0),        # window, Skv > Sq
+    (1, 16, 16, 1000, 1000, 80, False, 0, 0.0),    # HuBERT's 20 s of frames
+]
+
+
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 2e-5, 2e-5),
+                                             (torch.bfloat16, 1e-2, 4e-3)],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,hd,causal,window,softcap",
+                         FLASH_HD80_CASES)
+def test_flash_attention_hd80(card, B, Hq, Hkv, Sq, Skv, hd, causal, window,
+                              softcap, dtype, rtol, atol):
+    """The forward at head dim 80, at the limits of
+    ``test_flash_attention_kernel``, and the same output bit for bit from
+    a second call."""
+    test_flash_attention_kernel(card, B, Hq, Hkv, Sq, Skv, hd, causal,
+                                window, softcap, dtype, rtol, atol)
+    g = torch.Generator(device=card).manual_seed(5)
+    q, k, v = (torch.randn((B, S, H, hd), generator=g, device=card).to(dtype)
+               for S, H in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv)))
+    a = ops.flash_attention(q, k, v, causal=causal, window=window)
+    b = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,hd,causal,window,softcap",
+                         FLASH_HD80_CASES)
+def test_flash_attention_backward_hd80(card, B, Hq, Hkv, Sq, Skv, hd, causal,
+                                       window, softcap, dtype):
+    """The backward at head dim 80, within ``BWD_TOL``, two calls equal."""
+    test_flash_attention_backward_kernel(card, B, Hq, Hkv, Sq, Skv, hd,
+                                         causal, window, softcap, dtype)
+
+
+HUBERT_VARIANTS = {"reduced": {},
+                   "hd80": {"d_model": 160, "num_heads": 2,
+                            "num_kv_heads": 2, "head_dim": 80}}
+
+
+@pytest.mark.parametrize("name", list(HUBERT_VARIANTS))
+def test_reduced_hubert_on_the_card_matches_the_cpu(card, name):
+    """The reduced HuBERT (and its head-dim-80 variant) from the same
+    weights on the card and the CPU (held against the reference by
+    ``tests/test_torch_audio.py``) over 200 frames: logits within 1e-4 of
+    the largest, the masked-prediction loss within 1e-5 relative and each
+    gradient leaf within 1e-4 of its largest entry; one bidirectional
+    attention launch a layer each way."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves, tree_map, unflatten
+    cfg = dataclasses.replace(get_config("hubert-xlarge").reduced(),
+                              **HUBERT_VARIANTS[name])
+    cpu = T.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(1)
+    batch = {"embeds": torch.from_numpy(rng.normal(
+                 size=(2, 200, cfg.d_model)).astype(np.float32)),
+             "targets": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                      (2, 200))),
+             "target_mask": torch.from_numpy(
+                 (rng.random((2, 200)) < 0.5).astype(np.float32))}
+    out = {}
+    for dev, params in (("cpu", cpu),
+                        (card, tree_map(lambda t: t.to(card), cpu))):
+        on = {k: v.to(dev) for k, v in batch.items()}
+        logits, _ = T.forward(params, {"embeds": on["embeds"]}, cfg)
+        live = [t.detach().requires_grad_(True) for t in leaves(params)]
+        before = dict(LAUNCHES)
+        loss, _ = T.lm_loss(unflatten(params, live), on, cfg)
+        loss.backward()
+        if dev != "cpu":
+            for kernel in ("flash_attention", "flash_attention_backward"):
+                assert LAUNCHES[kernel] - before[kernel] == cfg.num_layers
+        out[str(dev)] = (logits.cpu(), loss.item(),
+                         [t.grad.cpu() for t in live])
+    (xc, lc, gc), (xg, lg, gg) = out["cpu"], out[str(card)]
+    assert_grad_close(xg, xc, 0.0, 1e-4)
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for a, b in zip(gg, gc):
+        assert_grad_close(a, b, 0.0, 1e-4)
+
+
+def image_positions(S, start, rows, cols):
+    """Qwen2-VL's (3, S) positions: text, one image of rows x cols patches
+    at ``start`` (t = start, h and w start + row and start + column), text
+    resuming at the largest position + 1."""
+    n = rows * cols
+    pos = np.empty((3, S), np.int64)
+    pos[:, :start] = np.arange(start)
+    r, c = np.divmod(np.arange(n), cols)
+    pos[:, start:start + n] = start
+    pos[1, start:start + n] += r
+    pos[2, start:start + n] += c
+    pos[:, start + n:] = pos[:, :start + n].max() + 1 + np.arange(
+        S - start - n)
+    return pos
+
+
+def test_reduced_qwen2_vl_on_the_card_matches_the_cpu(card):
+    """The reduced Qwen2-VL from the same weights on the card and the CPU
+    (held against the reference by ``tests/test_torch_vlm.py``): with 64
+    patch embeddings scattered at 16..79 and the image-layout M-RoPE
+    positions, logits within 1e-4 of the largest; greedy ``serve()``
+    completions identical."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests, serve
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    cfg = get_config("qwen2-vl-72b").reduced()
+    cpu = T.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu = tree_map(lambda t: t.to(card), cpu)
+    rng = np.random.default_rng(2)
+    pos = image_positions(128, 16, 8, 8)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (2, 128))),
+             "patch_embeds": torch.from_numpy(rng.normal(
+                 size=(2, 64, cfg.d_model)).astype(np.float32)),
+             "patch_positions": torch.arange(16, 80).expand(2, 64),
+             "positions": torch.from_numpy(pos)[:, None].expand(3, 2, 128)}
+    LAUNCHES["flash_attention"] = 0
+    got, _ = T.forward(gpu, {k: v.to(card) for k, v in batch.items()}, cfg)
+    assert LAUNCHES["flash_attention"] == cfg.num_layers
+    want, _ = T.forward(cpu, batch, cfg)
+    assert_grad_close(got.cpu(), want, 0.0, 1e-4)
+    reqs = make_requests(4, 12, cfg.vocab_size, seed=0)
+    a, _ = serve(cfg, reqs, batch=2, gen=8, params=gpu, device=card)
+    b, _ = serve(cfg, reqs, batch=2, gen=8, params=cpu, device="cpu")
+    assert a == b

@@ -74,7 +74,8 @@ def test_config_copies_equal_the_reference(arch):
         k: dataclasses.asdict(v) for k, v in ref_base.INPUT_SHAPES.items()}
     assert set(list_archs()) == {"recurrentgemma-2b", "gemma2-2b",
                                  "qwen2-7b", "qwen2.5-14b", "phi3-medium-14b",
-                                 "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b"}
+                                 "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b",
+                                 "qwen2-vl-72b", "hubert-xlarge"}
 
 
 # ---------------------------------------------------------------- prefill --
@@ -104,25 +105,30 @@ def test_forward_hidden_and_positions():
              "positions": torch.arange(32)[None].expand(2, 32)}
     got, _ = T.forward_hidden(params, batch, cfg)
     _close(got, want)
+    # other positions rotate by their values, the mask by index: the
+    # reference's kernel branch
     batch["positions"] = batch["positions"] + 1
-    with pytest.raises(NotImplementedError, match="arange"):
-        T.forward(params, batch, cfg)
+    want, _ = RT.forward_hidden(tree, {"tokens": jnp.asarray(toks),
+                                       "positions": jnp.asarray(
+                                           batch["positions"].numpy())},
+                                cfg_ref, use_flash=True)
+    got, _ = T.forward_hidden(params, batch, cfg)
+    _close(got, want)
 
 
 def test_later_slices_raise():
-    """xLSTM, M-RoPE, bidirectional attention and the front ends raise;
-    QKV biases and the MoE kind (their slice has landed) do not."""
+    """Only the xLSTM kinds raise; M-RoPE, bidirectional attention, the
+    front ends, QKV biases and the MoE kind (their slices have landed)
+    build."""
     base = get_config("gemma2-2b").reduced()
     for kind in ("mlstm", "slstm"):
         cfg = dataclasses.replace(base, block_pattern=(kind,))
         with pytest.raises(NotImplementedError, match="slice"):
             T.init_model(cfg, device="cpu")
-    for changes, match in (({"mrope": True}, "VLM"),
-                           ({"causal": False}, "audio"),
-                           ({"modality_frontend": "vision"}, "front end")):
-        with pytest.raises(NotImplementedError, match=match):
-            T.init_model(dataclasses.replace(base, **changes), device="cpu")
-    T.init_model(dataclasses.replace(base, qkv_bias=True), device="cpu")
+    for changes in ({"mrope": True}, {"causal": False},
+                    {"modality_frontend": "vision"},
+                    {"modality_frontend": "audio"}, {"qkv_bias": True}):
+        T.init_model(dataclasses.replace(base, **changes), device="cpu")
     T.init_model(get_config("qwen2-moe-a2.7b").reduced(), device="cpu")
 
 
