@@ -102,7 +102,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    10,131,227 x 16 (the cuts and why: FIG15_FULL); (b) and (c) run in
    processes of their own beside phases that print no time
    (BACKGROUND_FIGURES: fig16 and fig17 beside phase 4, fig15's fleets
-   beside 4m, 4h, 4v and 7 (b, c)), with the same rows, audits and
+   beside 4m, 4h, 4v, 4x and 7 (b, c)), with the same rows, audits and
    probes.  Every audit field must be true and
    ``unchanged_resave_bytes`` 0; the phase
    must launch ``row_hash`` (its count goes in the kernels line as
@@ -270,6 +270,33 @@ LM training with CPR over the token rows (RecurrentGemma-2B):
    parameters: identical policy fields, step 0's loss within 1e-5 and
    every loss within ``TRAIN_AGREE`` (its comment says why).
 
+xLSTM-1.3B (42 mLSTM and 6 sLSTM layers at 7:1, d 2,048, 4 heads of 512,
+vocab 50,304, untied; its layers launch none of the port's kernels: the
+reference's blocks are jnp):
+
+3x. The main path: ``xlstm-1.3b`` at full width and depth (f32
+   parameters, the tree's exact count, 1,238,681,936, checked; bf16
+   activations), one warm-up and one timed prefill ``forward`` over
+   ``XLSTM_PREFILL`` = (2, 4096) tokens, then ``serve()`` answers 8
+   requests (prompts up to 64 tokens, batch 4, 32 generated).  Counts
+   reset before the prefill and read after ``serve()``: every one 0.
+   Prints the prefill's ms, the ms per decode step, the peak memory.
+4x. (a) One pattern period (7 mLSTM, 1 sLSTM) at full width in f32 over
+   (1, 512) tokens (two mLSTM chunks), the same parameters on the card
+   and the CPU: ``lm_loss`` within 1e-5 relative, every gradient leaf
+   within ``GRAD_AGREE`` of its largest entry; (b) the reduced config on
+   the card: prefill against teacher-forced decode over
+   ``XLSTM_AGREE_SEQ`` tokens (the chunkwise forms against the recurrent
+   ones) within ``XLSTM_DECODE_TOL`` of the largest logit, then card
+   against CPU: ``forward`` within 1e-4, identical greedy ``serve()``
+   completions.
+7x. The main path: ``launch.train.train`` at full width and depth,
+   ``XLSTM_TRAIN_STEPS`` steps a mode, as 7 (a) in ``cpr-ssu`` (flat
+   store) and ``cpr-mfu`` (inproc fleet, delta
+   saves hashed by ``row_hash``): no attention or scan launch, CPR's
+   ``tracker_select``, ``row_hash`` and ``ssu_dedupe_evict`` each
+   launched; 7 (a)'s checks and lines.
+
 Depth cut when phases 3m and 4m arrived, so that the last phase ends by
 1,000 s of the 1,200 s limit (PERF.md section 4 gives the runs): uncut
 the script ended its last phase at 1,040.9 s; a first round of cuts took
@@ -294,8 +321,8 @@ moved into processes of their own beside phases that print no time, and
 was cut.
 
 Phases run in the order 1, 2, 3, 4 (fig16 and fig17 beside it), 2b, 2c,
-5, 6 (fig15 at full width), 3b, 4b, 3h, 3v, 3m, 4m, 4h, 4v, 7 (b, c)
-(fig15's fleets beside these five), 7 (a).  The script prints its time
+5, 6 (fig15 at full width), 3b, 4b, 3h, 3v, 3m, 4m, 4h, 4v, 4x, 7 (b, c)
+(fig15's fleets beside these six), 7 (a), 3x, 7x.  The script prints its time
 after every phase.  The last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, ...}``.
 """
@@ -407,6 +434,8 @@ BWD_SCAN_RAGGED = ((2, 1000, 2555), (8, 1000, 2555))
 TRAIN_SHAPE = (8, 512)
 # cut from 12, then 6: the time limit (PERF.md section 4)
 TRAIN_STEPS = 4
+# the modes and stores of 7 (a); 7x trains xLSTM in the last two
+TRAIN_RUNS = (("full", {}), ("cpr-ssu", {}), ("cpr-mfu", FLEET))
 # 7 (b): one pattern period (RG-LRU, RG-LRU, local attention) at full width
 # in f32 over PERIOD_SEQ tokens, card against CPU (cut from AGREE_SEQ for
 # the time limit: its cost, mostly the CPU's 256,000-word cross-entropy,
@@ -456,6 +485,16 @@ VLM_PREFILL = 4096
 VLM_IMAGE = (16, 32, 32)
 VLM_REPS = 3
 VLM_AGREE_SEQ = 256          # 4v (a): prefill vs decode over text tokens
+# xLSTM-1.3B (phases 3x, 4x, 7x) at full width and depth: 42 mLSTM and 6
+# sLSTM layers; the mLSTM runs in chunks of 256 tokens, the sLSTM one
+# token at a time
+XLSTM_ARCH = "xlstm-1.3b"
+XLSTM_PREFILL = (2, 4096)
+XLSTM_PERIOD_SEQ = 512       # 4x (a): one pattern period over two chunks
+XLSTM_AGREE_SEQ = 512        # 4x (b): prefill vs decode, reduced, f32
+XLSTM_DECODE_TOL = 1e-5      # of the largest logit (f32 on both paths)
+# 7x's steps a mode: cut from 4 for the time limit (PERF.md section 4)
+XLSTM_TRAIN_STEPS = 3
 SCRATCH = Path(__file__).resolve().parent / "build" / "chip_smoke"
 # phase 5: the benchmark harness.  fig7's policy fields must be equal on the
 # card and the CPU.  At the harness's size (70 steps) the trained model
@@ -525,7 +564,7 @@ FIG17_CUT = {"n_shards": 2}
 # bound by their processes' start on the card's host: each runs in a
 # process of its own (``chip_smoke.py --fleet-figure NAME OUT``) beside
 # phases that print no time (fig16 and fig17 beside phase 4, fig15's
-# beside 4m, 4h, 4v and 7 (b, c)), with the same rows, audits and probes
+# beside 4m, 4h, 4v, 4x and 7 (b, c)), with the same rows, audits and probes
 # as before.  name -> (label, harness module, arguments over its --fast
 # ones, (pipe writers, socket servers) that must report)
 BACKGROUND_FIGURES = {
@@ -1868,6 +1907,16 @@ def phase_lm_kernels(dev, ops, ref):
 
 
 @torch.no_grad()
+def launches_per_forward(cfg):
+    """The port's kernel launches in one forward over ``cfg``'s layers:
+    attention, local and MoE layers launch ``flash_attention``, RG-LRU
+    layers ``rglru_scan``, xLSTM layers neither."""
+    from repro_torch.models.transformer import ATTENTION_KINDS
+    kinds = cfg.layer_kinds
+    return {"flash_attention": sum(k in ATTENTION_KINDS for k in kinds),
+            "rglru_scan": sum(k == "rglru" for k in kinds)}
+
+
 def phase_serving(dev, kernels, cfg):
     """The serving path at full width (phase 3b): one prefill ``forward``
     over ``PREFILL_SHAPE`` tokens, then ``serve()`` answers 8 requests;
@@ -1885,9 +1934,7 @@ def phase_serving(dev, kernels, cfg):
           f"GB) on the card, {cfg.dtype} activations "
           f"({time.perf_counter() - t0:.1f} s to draw)")
     gen = torch.Generator(device=dev).manual_seed(1)
-    kinds = cfg.layer_kinds
-    want = {"flash_attention": sum(k != "rglru" for k in kinds),
-            "rglru_scan": sum(k == "rglru" for k in kinds)}
+    want = launches_per_forward(cfg)
     toks = torch.randint(0, cfg.vocab_size, P.PREFILL_SHAPE, generator=gen,
                          device=dev)
     T.forward(params, {"tokens": toks[:, :256]}, cfg)      # warm-up
@@ -1960,9 +2007,7 @@ def phase_lm_agreement(dev, params, cfg, small):
     import dataclasses
 
     from repro_torch.kernels import LAUNCHES
-    from repro_torch.launch.serve import make_requests, serve
     from repro_torch.models import transformer as T
-    from repro_torch.tree import tree_map
     arch = cfg.name
     cfg = dataclasses.replace(cfg, dtype="float32")
     S = AGREE_SEQ
@@ -2001,8 +2046,17 @@ def phase_lm_agreement(dev, params, cfg, small):
         fail("prefill and decode disagree at full width")
     del full, state
     torch.cuda.empty_cache()
+    reduced_agreement(dev, small)
 
-    cfg = small
+
+@torch.no_grad()
+def reduced_agreement(dev, cfg):
+    """A reduced (f32) config on the card and the CPU from the same
+    parameters: ``forward`` logits within 1e-4 and identical greedy
+    ``serve()`` completions."""
+    from repro_torch.launch.serve import make_requests, serve
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
     cpu = T.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
     card = tree_map(lambda t: t.to(dev), cpu)
     toks = torch.from_numpy(np.random.default_rng(0).integers(
@@ -2572,6 +2626,126 @@ def phase_vlm_agreement(dev, params, cfg):
         fail("the reduced Qwen2-VL on the card disagrees with the CPU path")
 
 
+def xlstm_param_count(cfg) -> int:
+    """Parameters in an xLSTM tree: per mLSTM layer q, k, v, output-gate
+    and output projections, the input and forget gates' (d, H) weights and
+    biases and its norm; per sLSTM layer four gate projections, their
+    block-diagonal recurrent weights and biases, the output projection and
+    its norm; the embedding, the untied head and the final norm."""
+    d, H = cfg.d_model, cfg.num_heads
+    hd = d // H
+    per = {"mlstm": 5 * d * d + 2 * d * H + 2 * H + d,
+           "slstm": 5 * d * d + 4 * H * hd * hd + 4 * d + d}
+    return sum(per[k] for k in cfg.layer_kinds) + 2 * cfg.vocab_size * d + d
+
+
+@torch.no_grad()
+def phase_xlstm_serving(dev, kernels, cfg):
+    """xLSTM's serving path at full width and depth (phase 3x): one
+    warm-up, one timed prefill ``forward`` over ``XLSTM_PREFILL`` tokens,
+    then ``serve()`` answers 8 requests at batch 4."""
+    from repro_torch.launch.serve import make_requests, serve
+    from repro_torch.models import transformer as T
+    arch = cfg.name
+    t0 = time.perf_counter()
+    params = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = T.param_count(params)
+    print(f"{arch}: {n_params:,} parameters, f32 ({n_params * 4 / 1e9:.2f} "
+          f"GB) on the card, {cfg.dtype} activations "
+          f"({time.perf_counter() - t0:.1f} s to draw)")
+    if n_params != xlstm_param_count(cfg):
+        fail(f"{arch} drew {n_params:,} parameters, not "
+             f"{xlstm_param_count(cfg):,}")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, XLSTM_PREFILL, generator=gen,
+                         device=dev)
+    t0 = time.perf_counter()
+    T.forward(params, {"tokens": toks[:, :256]}, cfg)      # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    reqs = make_requests(8, 64, cfg.vocab_size, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    logits, _ = T.forward(params, {"tokens": toks}, cfg)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    finite = bool(torch.isfinite(logits).all())
+    shape = tuple(logits.shape)
+    del logits
+    done, stats = serve(cfg, reqs, batch=4, gen=32, params=params, device=dev)
+    counts = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_tok = XLSTM_PREFILL[0] * XLSTM_PREFILL[1]
+    print(f"prefill {arch} {XLSTM_PREFILL}: {prefill_s * 1e3:.1f} ms (one "
+          f"forward after a (2, 256) warm-up of {warm_s * 1e3:.1f} ms), "
+          f"{n_tok / prefill_s:.0f} tokens/s, logits {shape} finite="
+          f"{finite}")
+    print(f"serve {arch}: {len(done)} requests (prompts "
+          f"{min(map(len, reqs))}..{max(map(len, reqs))} tokens), batch 4, "
+          f"gen 32: {stats['tokens']} tokens in {stats['wall_s']:.2f} s -> "
+          f"{stats['tok_per_s']:.1f} tokens/s, "
+          f"{stats['wall_s'] / stats['steps'] * 1e3:.2f} ms per decode step "
+          f"at batch 4 ({stats['steps']} steps, {stats['refills']} refills; "
+          f"f32 state, {cfg.dtype} activations); peak memory (prefill and "
+          f"serve) {peak / 1e9:.2f} GB")
+    print(f"launches (prefill + serve): {json.dumps(counts)}")
+    if shape != (*XLSTM_PREFILL, cfg.vocab_size) or not finite:
+        fail("the xLSTM prefill's logits have the wrong shape or are not "
+             "finite")
+    if sorted(done) != list(range(8)) or any(
+            len(c) != 32 or not all(0 <= t < cfg.vocab_size for t in c)
+            for c in done.values()):
+        fail("serve() did not answer every request with 32 tokens")
+    if any(counts.values()):
+        fail("the xLSTM serving path launched one of the port's kernels; "
+             "its layers have none")
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+@torch.no_grad()
+def xlstm_decode_agreement(dev, cfg, S):
+    """Prefill against decode teacher-forced over (2, S) tokens, the
+    config in f32 on the card: logits within ``XLSTM_DECODE_TOL`` of the
+    largest at every position."""
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    params = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (2, S), generator=gen, device=dev)
+    full, _ = T.forward(params, {"tokens": toks}, cfg)
+    state = T.init_decode_state(cfg, 2, S, torch.float32, dev)
+    err = torch.zeros((), device=dev)
+    for i in range(S):
+        logits, state = T.decode_step(params, state, toks[:, i], i, cfg)
+        err = torch.maximum(err, (logits - full[:, i]).abs().max())
+    scale = full.abs().max().item()
+    err = err.item()
+    ok = err <= XLSTM_DECODE_TOL * scale
+    print(f"prefill vs decode ({cfg.name}, f32, (2, {S}) tokens, chunks of "
+          f"256 against the recurrent forms): max_abs_err={err:.3e} over "
+          f"every position, max |logit|={scale:.4f}, "
+          f"tol={XLSTM_DECODE_TOL:g}*max|logit| ok={ok} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if not ok:
+        fail("xLSTM's prefill and decode disagree on the card")
+
+
+def phase_xlstm_agreement(dev, kernels, cfg):
+    """Phase 4x: (a) one pattern period (7 mLSTM, 1 sLSTM) at full width
+    in f32, card against CPU; (b) the reduced config's prefill against
+    its decode on the card, then card against CPU (forward, ``serve()``).
+    It prints no time, so it runs beside a background figure."""
+    period_agreement(dev, kernels, cfg, XLSTM_PERIOD_SEQ)
+    small = cfg.reduced()
+    xlstm_decode_agreement(dev, small, XLSTM_AGREE_SEQ)
+    reduced_agreement(dev, small)
+    torch.cuda.empty_cache()
+
+
 def bwd_excess(got, want, rtol, atol):
     """max |got - want| and its largest ratio to the limit rtol * |want| +
     atol * max |want|, over the gradients ``got`` and ``want``."""
@@ -2796,21 +2970,19 @@ def _train_report_line(rep):
     return json.dumps(out)
 
 
-def phase_training(dev, kernels, cfg):
-    """LM training with CPR over the token rows (phase 7 (a)): the main
-    path at full width in three modes."""
+def phase_training(dev, kernels, cfg, runs=TRAIN_RUNS, steps=TRAIN_STEPS):
+    """LM training with CPR over the token rows (phase 7 (a), and 7x for
+    xLSTM): the main path at full width in each of ``runs``' modes."""
     from repro_torch.launch.train import train
     from repro_torch.tree import leaves
-    kinds = cfg.layer_kinds
-    per_step = {"flash_attention": sum(k != "rglru" for k in kinds),
-                "rglru_scan": sum(k == "rglru" for k in kinds)}
+    per_step = launches_per_forward(cfg)
     per_step["flash_attention_backward"] = per_step["flash_attention"]
     per_step["rglru_scan_backward"] = per_step["rglru_scan"]
     uses = {"cpr-mfu": ("tracker_select", "row_hash"),
             "cpr-ssu": ("ssu_dedupe_evict",)}
     totals = {name: 0 for name in kernels.LAUNCHES}
     batch, seq = TRAIN_SHAPE
-    for mode, store in (("full", {}), ("cpr-ssu", {}), ("cpr-mfu", FLEET)):
+    for mode, store in runs:
         t0 = time.perf_counter()
         zero = []
 
@@ -2822,8 +2994,9 @@ def phase_training(dev, kernels, cfg):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
-        # (the trained parameters are dropped at once: 10.6 GB)
-        hist = train(cfg, steps=TRAIN_STEPS, batch=batch, seq=seq,
+        # (the trained parameters are dropped at once: 10.6 GB for
+        # RecurrentGemma-2B)
+        hist = train(cfg, steps=steps, batch=batch, seq=seq,
                      mode=mode, n_failures=2, fail_fraction=0.25,
                      tracker_backend="kernel", log_every=1, device=dev,
                      on_step=check_grads, **store)[1]
@@ -2835,8 +3008,8 @@ def phase_training(dev, kernels, cfg):
         steady = statistics.median(hist["step_s"][2:]) * 1e3
         where = "fleet (inproc, delta saves)" if store else "flat store"
         print(f"train {cfg.name} {mode} on the {where}: batch {batch} x "
-              f"{seq} tokens, {TRAIN_STEPS} steps, steady_ms_per_step="
-              f"{steady:.1f} (median of steps 2..{TRAIN_STEPS - 1}; each: "
+              f"{seq} tokens, {steps} steps, steady_ms_per_step="
+              f"{steady:.1f} (median of steps 2..{steps - 1}; each: "
               f"{', '.join(f'{t * 1e3:.1f}' for t in hist['step_s'])}) "
               f"peak_memory_GB="
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} "
@@ -2846,13 +3019,13 @@ def phase_training(dev, kernels, cfg):
         print(f"  report: {_train_report_line(rep)}")
         print(f"  launches: {json.dumps(counts)}")
         for name, n in per_step.items():
-            if counts[name] != n * TRAIN_STEPS:
+            if counts[name] != n * steps:
                 fail(f"train {mode}: {name} launched {counts[name]} times, "
                      f"not {n} a step")
         missing = [n for n in uses.get(mode, ()) if counts[n] == 0]
         if missing:
             fail(f"train {mode}: {missing} never launched")
-        if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        if len(losses) != steps or not all(map(math.isfinite, losses)):
             fail(f"train {mode}: a loss is not finite")
         if zero:
             fail(f"train {mode}: gradient leaves {zero} are zero after "
@@ -2865,28 +3038,27 @@ def phase_training(dev, kernels, cfg):
                           and rep["hash_backend"] == "kernel"):
             fail(f"train {mode}: the run did not go through the fleet")
         del hist
-    print(f"train: launches of the three runs {json.dumps(totals)}")
+    print(f"train {cfg.name}: launches of the {len(runs)} runs "
+          f"{json.dumps(totals)}")
     torch.cuda.empty_cache()
     return totals
 
 
-def phase_training_agreement(dev, kernels, cfg):
-    """Phase 7 (b): one pattern period's loss and gradients at full width,
-    card against CPU; (c) the reduced config's training run, card against
-    CPU.  They print no time, so they run before (a), beside a
-    background figure."""
+def period_agreement(dev, kernels, cfg, seq):
+    """One pattern period of ``cfg`` at full width in f32 over (1, seq)
+    tokens, the same parameters on the card and the CPU: ``lm_loss``
+    within 1e-5 relative, every gradient leaf within ``GRAD_AGREE`` of its
+    largest entry."""
     import dataclasses
 
-    from repro_torch.launch.train import train
     from repro_torch.models import transformer as T
     from repro_torch.tree import leaves, tree_map, unflatten
-    # (b) one pattern period at full width in f32: card against CPU
     t0 = time.perf_counter()
     one = dataclasses.replace(cfg, num_layers=len(cfg.block_pattern),
                               dtype="float32")
     cpu = T.init_model(one, torch.Generator().manual_seed(0), "cpu")
     toks = torch.from_numpy(np.random.default_rng(7).integers(
-        0, one.vocab_size, (1, PERIOD_SEQ)))
+        0, one.vocab_size, (1, seq)))
     out = {}
     before = dict(kernels.LAUNCHES)
     for d in (dev, "cpu"):
@@ -2905,7 +3077,7 @@ def phase_training_agreement(dev, kernels, cfg):
               for a, b in zip(gg, gc)]
     ok = abs(lg - lc) <= 1e-5 * abs(lc) and max(shares) <= GRAD_AGREE
     print(f"gradients at full width ({one.name}, {one.num_layers} layers "
-          f"{one.block_pattern}, f32, (1, {PERIOD_SEQ}) tokens): loss card "
+          f"{one.block_pattern}, f32, (1, {seq}) tokens): loss card "
           f"{lg:.6f} cpu {lc:.6f} (tol 1e-5 relative); {len(gg)} leaves, "
           f"largest |card - cpu| / max|cpu| {max(shares):.3e} (limit "
           f"{GRAD_AGREE:g}; by leaf {', '.join(f'{x:.1e}' for x in shares)}) "
@@ -2915,6 +3087,16 @@ def phase_training_agreement(dev, kernels, cfg):
         fail("full-width gradients on the card disagree with the CPU's")
     del out, gg, gc, cpu
     torch.cuda.empty_cache()
+
+
+def phase_training_agreement(dev, kernels, cfg):
+    """Phase 7 (b): one pattern period's loss and gradients at full width,
+    card against CPU; (c) the reduced config's training run, card against
+    CPU.  They print no time, so they run before (a), beside a
+    background figure."""
+    from repro_torch.launch.train import train
+    from repro_torch.models import transformer as T
+    period_agreement(dev, kernels, cfg, PERIOD_SEQ)
 
     # (c) the reduced config trained on the card and on the CPU
     t0 = time.perf_counter()
@@ -3044,7 +3226,7 @@ def main() -> None:
     moe = get_config(MOE_ARCH)
     params, moe_launches = phase_moe_serving(dev, kernels, moe)
     phase_done("3m")
-    # beside 4m, 4h, 4v and 7 (b, c), which print no time
+    # beside 4m, 4h, 4v, 4x and 7 (b, c), which print no time
     fig15 = start_fleet_figure("fig15")
     phase_moe_agreement(dev, params, moe)
     del params
@@ -3058,17 +3240,26 @@ def main() -> None:
     del params                  # phase 7's peak is 60.75 GB
     torch.cuda.empty_cache()
     phase_done("4v")
+    xlstm = get_config(XLSTM_ARCH)
+    phase_xlstm_agreement(dev, kernels, xlstm)
+    phase_done("4x")
     phase_training_agreement(dev, kernels, lm)
     phase_done("7 (b, c)")
     harness_hashes += finish_fleet_figure(fig15)
     phase_done("6 (fig15's fleets)")
     train_launches = phase_training(dev, kernels, lm)
     phase_done("7")
+    xlstm_launches = phase_xlstm_serving(dev, kernels, xlstm)
+    phase_done("3x")
+    xlstm_train_launches = phase_training(dev, kernels, xlstm,
+                                          runs=TRAIN_RUNS[1:],
+                                          steps=XLSTM_TRAIN_STEPS)
+    phase_done("7x")
     # launches on the main paths: the DLRM's (phase 3), serving's (3b, 3m,
-    # 3v), the audio encoder's (3h) and training's (7 (a)), each counted
-    # from 0 around its run
+    # 3v, 3x), the audio encoder's (3h) and training's (7 (a), 7x), each
+    # counted from 0 around its run
     for counts in (lm_launches, moe_launches, vlm_launches, hubert_launches,
-                   train_launches):
+                   train_launches, xlstm_launches, xlstm_train_launches):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
 

@@ -1,10 +1,11 @@
 """Model configurations of the port (its own copies of ``repro.configs``).
 
 ``get_config(arch_id)`` / ``list_archs()`` cover the language models the
-port runs so far: the Griffin and Gemma-2 families, the dense Qwen2,
+port runs: the Griffin and Gemma-2 families, the dense Qwen2,
 Qwen2.5 and Phi-3 models, the Qwen MoE models, Qwen2-VL (M-RoPE, patch
-embeddings) and HuBERT (an audio encoder).  The reference's xLSTM comes
-with its slice.  The DLRM configurations live in ``configs.dlrm``.
+embeddings), HuBERT (an audio encoder) and xLSTM (mLSTM and sLSTM
+blocks): every language model of the reference.  The DLRM configurations
+live in ``configs.dlrm``.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ _MODULES = {
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "qwen2-vl-72b": "qwen2_vl_72b",
     "hubert-xlarge": "hubert_xlarge",
+    "xlstm-1.3b": "xlstm_1_3b",
 }
 
 

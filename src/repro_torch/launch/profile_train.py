@@ -1,10 +1,12 @@
 """Where a full-width LM training step spends its device time.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train \\
-        [--mode cpr-mfu] [--warmup 2] [--steps 4] [--top 15]
+        [--arch xlstm-1.3b] [--mode cpr-mfu] [--warmup 2] [--steps 4] \\
+        [--top 15]
 
-Trains RecurrentGemma-2B at full width as ``chip_smoke.py`` phase 7 (a)
-does (batch 8 x 512, 2 failures, kernel tracker backend, the flat store)
+Trains a model at full width (``ARCH`` unless ``--arch``) as
+``chip_smoke.py`` phases 7 (a) and 7x do (batch 8 x 512, 2 failures,
+kernel tracker backend, the flat store)
 and wraps ``--steps`` steps after ``--warmup`` in ``torch.profiler`` (CPU
 and CUDA activities), with the saves and failures between them.  The
 window runs from one step's gradient (``train``'s ``on_step``) to a later
@@ -22,7 +24,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import resolve_device
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.launch.train import train
 
 ARCH = "recurrentgemma-2b"
@@ -31,6 +33,7 @@ BATCH, SEQ = 8, 512
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default=ARCH, choices=list_archs())
     ap.add_argument("--mode", default="cpr-mfu")
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--steps", type=int, default=4)
@@ -39,7 +42,7 @@ def main(argv=None) -> None:
     if args.warmup < 1 or args.steps < 1:
         ap.error("need warmup >= 1 and steps >= 1")
     dev = resolve_device("cuda")
-    cfg = get_config(ARCH)
+    cfg = get_config(args.arch)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     window = {}
 
@@ -62,7 +65,7 @@ def main(argv=None) -> None:
     busy_ms = sum(r[1] for r in rows) / 1e3
     wall_ms = window["s"] * 1e3
     n = args.steps
-    print(f"{torch.cuda.get_device_name(0)}; {ARCH} at full width, batch "
+    print(f"{torch.cuda.get_device_name(0)}; {cfg.name} at full width, batch "
           f"{BATCH} x {SEQ}, mode={args.mode}; {n} steps after step "
           f"{args.warmup} profiled, with their saves and failures")
     print(f"window {wall_ms / n:.3f} ms per step (host clock, profiled), "

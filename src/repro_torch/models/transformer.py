@@ -24,9 +24,10 @@ with ``torch.utils.checkpoint`` where the reference uses
 recomputed span beside the residual stream, summed in the reference's
 order.
 
-Layer kinds: global and local attention, RG-LRU, and MoE (attention, then
-``models.moe.apply_moe`` on the rmsnorm'd residual).  The xLSTM kinds come
-with a later slice and raise here.  Front ends (stubs, as in the
+Layer kinds: global and local attention, RG-LRU, MoE (attention, then
+``models.moe.apply_moe`` on the rmsnorm'd residual), and xLSTM's mLSTM
+and sLSTM (``models.xlstm``; with d_ff 0 such a layer is ``x +
+block(norm1(x))``).  Front ends (stubs, as in the
 reference): an audio model (HuBERT) takes frame embeddings (B, S, d) and
 has no token embedding; a vision model (Qwen2-VL) takes tokens with patch
 embeddings scattered into them and M-RoPE's (3, B, S) positions.  An
@@ -46,18 +47,17 @@ from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MLSTM, MOE, RECURRENT,
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import xlstm as xlstm_lib
 # one conversion carries any of the reference's parameter trees across
 from repro_torch.tree import params_from_jax  # noqa: F401  (re-export)
 from repro_torch.tree import leaves, tree_map
 
-_LATER = {MLSTM: "the xLSTM slice", SLSTM: "the xLSTM slice"}
+KINDS = (ATTN, LOCAL_ATTN, RECURRENT, MOE, MLSTM, SLSTM)
+ATTENTION_KINDS = (ATTN, LOCAL_ATTN, MOE)
 
 
 def _check_kind(kind: str):
-    if kind in _LATER:
-        raise NotImplementedError(f"layer kind {kind!r} comes with "
-                                  f"{_LATER[kind]}")
-    if kind not in (ATTN, LOCAL_ATTN, RECURRENT, MOE):
+    if kind not in KINDS:
         raise ValueError(kind)
 
 
@@ -79,6 +79,12 @@ def init_layer(generator, cfg: ModelConfig, kind: str, device=None):
     if kind == RECURRENT:
         p["rglru"] = rglru_lib.init_rglru_block(
             generator, cfg.d_model, cfg.rglru_width, cfg.conv1d_width, device)
+    elif kind == MLSTM:
+        p["mlstm"] = xlstm_lib.init_mlstm(generator, cfg.d_model,
+                                          cfg.num_heads, device)
+    elif kind == SLSTM:
+        p["slstm"] = xlstm_lib.init_slstm(generator, cfg.d_model,
+                                          cfg.num_heads, device)
     else:
         p["attn"] = L.init_attention(generator, cfg, device)
     if kind == MOE:     # its norm is rmsnorm whatever the model's
@@ -177,6 +183,10 @@ def apply_layer(p, x, aux, cfg: ModelConfig, kind: str, positions):
     h = L.apply_norm(p["norm1"], x, cfg.norm_eps)
     if kind == RECURRENT:
         h = rglru_lib.rglru_block_forward(p["rglru"], h)
+    elif kind == MLSTM:
+        h = xlstm_lib.mlstm_forward(p["mlstm"], h, cfg.num_heads)
+    elif kind == SLSTM:
+        h = xlstm_lib.slstm_forward(p["slstm"], h, cfg.num_heads)
     else:
         h = L.attention_forward(p["attn"], h, cfg, kind, positions)
     return _ffn(p, x + h, cfg, kind, aux)
@@ -346,6 +356,12 @@ def _init_layer_state(cfg, kind, batch, max_len, dtype, device):
     _check_kind(kind)
     if kind == RECURRENT:
         return rglru_lib.init_rglru_state(cfg, batch, dtype, device)
+    if kind == MLSTM:       # f32 whatever the model's dtype
+        return xlstm_lib.init_mlstm_state(cfg.d_model, cfg.num_heads, batch,
+                                          device)
+    if kind == SLSTM:
+        return xlstm_lib.init_slstm_state(cfg.d_model, cfg.num_heads, batch,
+                                          device)
     # an MoE layer attends globally: a full-length cache
     return L.init_kv_cache(cfg, kind, batch, max_len, dtype, device)
 
@@ -356,8 +372,10 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     dtype = dtype or _dtype(cfg)
     P = len(cfg.block_pattern)
     R = cfg.num_layers // P
+    # each repetition starts from the layer's own initial state (the
+    # mLSTM's m is -1e30, the sLSTM's n is 1), not from zeros
     stages = tuple(
-        tree_map(lambda a: a.new_zeros((R,) + a.shape),
+        tree_map(lambda a: a.expand((R,) + a.shape).clone(),
                  _init_layer_state(cfg, kind, batch, max_len, dtype, device))
         for kind in cfg.block_pattern)
     kinds = cfg.layer_kinds
@@ -374,6 +392,10 @@ def apply_layer_decode(p, x, state, pos: int, cfg: ModelConfig, kind: str):
     h = L.apply_norm(p["norm1"], x, cfg.norm_eps)
     if kind == RECURRENT:
         h, state = rglru_lib.rglru_block_decode(p["rglru"], h, state)
+    elif kind == MLSTM:
+        h, state = xlstm_lib.mlstm_decode(p["mlstm"], h, state, cfg.num_heads)
+    elif kind == SLSTM:
+        h, state = xlstm_lib.slstm_decode(p["slstm"], h, state, cfg.num_heads)
     else:
         h, state = L.attention_decode(p["attn"], h, state, pos, cfg, kind)
     x, _ = _ffn(p, x + h, cfg, kind, 0.0)

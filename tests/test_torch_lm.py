@@ -75,7 +75,8 @@ def test_config_copies_equal_the_reference(arch):
     assert set(list_archs()) == {"recurrentgemma-2b", "gemma2-2b",
                                  "qwen2-7b", "qwen2.5-14b", "phi3-medium-14b",
                                  "qwen2-moe-a2.7b", "qwen3-moe-30b-a3b",
-                                 "qwen2-vl-72b", "hubert-xlarge"}
+                                 "qwen2-vl-72b", "hubert-xlarge",
+                                 "xlstm-1.3b"}
 
 
 # ---------------------------------------------------------------- prefill --
@@ -117,19 +118,32 @@ def test_forward_hidden_and_positions():
 
 
 def test_later_slices_raise():
-    """Only the xLSTM kinds raise; M-RoPE, bidirectional attention, the
-    front ends, QKV biases and the MoE kind (their slices have landed)
-    build."""
+    """No layer kind raises any more (the xLSTM slice was the last): a
+    one-kind model of every kind, and M-RoPE, bidirectional attention, the
+    front ends and QKV biases, build at ``reduced()`` and run one forward
+    to finite logits of the right shape."""
     base = get_config("gemma2-2b").reduced()
-    for kind in ("mlstm", "slstm"):
-        cfg = dataclasses.replace(base, block_pattern=(kind,))
-        with pytest.raises(NotImplementedError, match="slice"):
-            T.init_model(cfg, device="cpu")
-    for changes in ({"mrope": True}, {"causal": False},
-                    {"modality_frontend": "vision"},
-                    {"modality_frontend": "audio"}, {"qkv_bias": True}):
-        T.init_model(dataclasses.replace(base, **changes), device="cpu")
-    T.init_model(get_config("qwen2-moe-a2.7b").reduced(), device="cpu")
+    cfgs = [dataclasses.replace(base, block_pattern=(kind,))
+            for kind in T.KINDS if kind != port_base.MOE]
+    cfgs += [dataclasses.replace(base, **changes) for changes in (
+        {"mrope": True}, {"causal": False}, {"modality_frontend": "vision"},
+        {"qkv_bias": True})]
+    cfgs += [get_config(a).reduced() for a in ("hubert-xlarge",
+                                               "qwen2-moe-a2.7b",
+                                               "xlstm-1.3b")]
+    assert {k for c in cfgs for k in c.layer_kinds} == set(T.KINDS)
+    rng = np.random.default_rng(0)
+    for cfg in cfgs:
+        params = T.init_model(cfg, device="cpu")
+        if cfg.modality_frontend == "audio":
+            batch = {"embeds": torch.tensor(rng.normal(
+                size=(2, 16, cfg.d_model)).astype(np.float32))}
+        else:
+            batch = {"tokens": torch.tensor(rng.integers(
+                0, cfg.vocab_size, (2, 16)))}
+        logits, _ = T.forward(params, batch, cfg)
+        assert logits.shape == (2, 16, cfg.vocab_size), cfg.layer_kinds
+        assert bool(torch.isfinite(logits).all()), cfg.layer_kinds
 
 
 def test_init_model_layout_matches_the_reference():
