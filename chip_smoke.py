@@ -125,6 +125,10 @@ freed first):
    phase 3v's (1, 64, 4096, 128) over (1, 8, 4096, 128) causal GQA
    (Qwen2-VL's), and HuBERT's bidirectional head dim 80 over 1,000 frames:
    phase 3h's (8, 16, 1000, 80) bf16 and 4h's (1, 16, 1000, 80) f32,
+   and phase 8's gemma2-2b, softcap 50, on its local layers (window
+   4,096) and its global ones: a training microbatch (``MESH_MICROBATCH``
+   = (4, 4096): (4, 8, 4096, 256) over (4, 4, 4096, 256)) and the prefill
+   (2, 8, 4096, 256) over (2, 4, 4096, 256), bf16,
    each with its own device time (profiler); the scan at
    (2, 4096, 2560) f32 and bf16 (bit for bit), with its own device time
    (profiler) and, as a yardstick, one ``torch.add`` over the same
@@ -144,7 +148,9 @@ freed first):
    4096, 256) global with softcap 50, f32 (4, 8, 128, 64) over (4, 4,
    128, 64) with window 256 (the LM example's), HuBERT's bidirectional
    head dim 80 at 3h's (8, 16, 1000, 80) bf16 and 4h's (1, 16, 1000, 80)
-   f32, and f32 (1, 10, 2176, 256)
+   f32, phase 8's gemma2-2b training microbatch (4, 8, 4096, 256) over
+   (4, 4, 4096, 256) bf16 with softcap 50, local (window 4,096) and
+   global, and f32 (1, 10, 2176, 256)
    over (1, 1, 2176, 256) with window 2,048 (the training check 7 (b) at
    full width), within
    ``BWD_TOL`` (|kernel - plain| <= rtol |plain| + atol max|plain|; the
@@ -297,6 +303,34 @@ reference's blocks are jnp):
    ``tracker_select``, ``row_hash`` and ``ssu_dedupe_evict`` each
    launched; 7 (a)'s checks and lines.
 
+The mesh layer (gemma2-2b: 26 layers, d 2,304, 8:4 heads of 256, local
+window 4,096 and global layers with softcap 50, vocab 256,000 tied):
+
+8. (a) The main path: the reference's production step builders
+   (``repro_torch.launch.steps``) on ``launch.mesh.make_host_mesh()`` (a
+   world of one over NCCL): ``build_train_step`` (Adam, bf16 forward,
+   ``MESH_MICROBATCHES`` = 4 microbatches: its comment says why) through
+   ``shard_train_step`` at ``MESH_TRAIN`` = (16, 4096) tokens, pod16x16's
+   share of train_4k, ``MESH_TRAIN_STEPS`` steps;
+   counts reset before the first step and read after the prefill: every
+   microbatch launches ``flash_attention`` and its backward at least once
+   a layer.  Then ``build_prefill_step`` at (2, 4096) and
+   ``build_serve_step`` at batch 4 for 16 steps.  Prints ms a step, the
+   peak memory, the launches and the collectives (none on one rank).
+   (b) The reduced gemma2-2b, one f32 step through ``shard_train_step``
+   on the card and on the CPU from the same parameters: the loss within
+   1e-5 relative, Adam's first moment (0.1 of the gradient) within
+   ``GRAD_AGREE`` of its largest.  (c) The dry run of gemma2-2b x
+   train_4k x pod16x16 (``launch.dryrun``: a fake process group of 256
+   ranks, fake CPU tensors, no card visible) in a process of its own,
+   started with fig15's fleets beside 4m-7 (b, c), which print no time,
+   and joined here, so that no other process shares the host with (a)'s
+   timed steps: status ok and
+   ``DRYRUN_ARGUMENT_BYTES``, the reference's compiled artifact's; its
+   roofline terms are printed as
+   model estimates from the data sheet's constants.  The process group is
+   destroyed before the last lines.
+
 Depth cut when phases 3m and 4m arrived, so that the last phase ends by
 1,000 s of the 1,200 s limit (PERF.md section 4 gives the runs): uncut
 the script ended its last phase at 1,040.9 s; a first round of cuts took
@@ -322,8 +356,8 @@ was cut.
 
 Phases run in the order 1, 2, 3, 4 (fig16 and fig17 beside it), 2b, 2c,
 5, 6 (fig15 at full width), 3b, 4b, 3h, 3v, 3m, 4m, 4h, 4v, 4x, 7 (b, c)
-(fig15's fleets beside these six), 7 (a), 3x, 7x.  The script prints its time
-after every phase.  The last two lines are ``{"kernels": [...]}`` and
+(fig15's fleets and 8 (c)'s dry run beside these six), 7 (a), 3x, 7x, 8.
+The script prints its time after every phase.  The last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, ...}``.
 """
 from __future__ import annotations
@@ -344,13 +378,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
-F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
-TF32_OPS_PER_S = 495e12        # H100 SXM TF32 tensor cores, dense
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+# the H100 SXM's data-sheet rates (repro_torch.launch.mesh names each
+# source): HBM, f32 outside the tensor cores, TF32 and bf16 tensor cores
+from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_OPS_PER_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_F32 as F32_OPS_PER_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_TF32 as TF32_OPS_PER_S  # noqa: E402
+
 # f32-accurate products on the tensor cores take three TF32 products each
 # (3xTF32, csrc/tf32x3.cuh): the f32 attention kernels' bound
 F32_TC_OPS_PER_S = TF32_OPS_PER_S / 3
-BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 N_BIG, D, B = 10_131_227, 16, 512
 # phase 3's steps a mode (and phase 5 (a)'s): cut from 35 with the MoE
 # serving phases' arrival (PERF.md section 4)
@@ -367,6 +405,28 @@ FLEET = {"sharded_save": True, "delta_saves": True, "hash_backend": "kernel",
 # workload of phase 3b is repro_torch.launch.profile_serve's (ARCH,
 # PREFILL_SHAPE, PREFILL_REPS, DECODE_*), imported in main()
 AGREE_SEQ = 2176             # prefill vs decode: past the window, ring wraps
+# phase 8: the mesh layer.  gemma2-2b's production steps at full width and
+# depth on the host mesh (NCCL, a world of one) through shard_train_step,
+# Adam, bf16 forward, 4 microbatches; then the prefill and serve steps.
+# The batch is the per-GPU share of train_4k on pod16x16 (256 sequences
+# over 16 data ranks).  The whole model state lives on the one card, so
+# it takes 4 microbatches of 4 sequences (peak 68.29 GB) where the
+# production mesh's dry run takes 2: with 2 the step ran out of memory,
+# with the caching allocator's expandable segments too (79.16 GB
+# allocated at the failure; launch/profile_mesh.py, PERF.md section 4)
+MESH_ARCH = "gemma2-2b"
+MESH_TRAIN = (16, 4096)
+MESH_MICROBATCHES = 4
+MESH_TRAIN_STEPS = 3
+MESH_PREFILL = (2, 4096)
+# a microbatch's (batch, tokens): phase 2b's and 2c's gemma2-2b cases
+MESH_MICROBATCH = (MESH_TRAIN[0] // MESH_MICROBATCHES, MESH_TRAIN[1])
+MESH_SERVE = (4, 16)               # batch, decode steps
+MESH_AGREE = (4, 128)              # 8 (b): reduced, f32, card vs CPU
+# 8 (c): the dry run's argument bytes per GPU of gemma2-2b x train_4k on
+# pod16x16, from the reference's compiled artifact
+# (artifacts/dryrun/gemma2-2b__train_4k__pod16x16.json, memory.argument_bytes)
+DRYRUN_ARGUMENT_BYTES = 98_384_900
 # flash_attention cases of phase 2b: name, (B, Hq, Hkv, S, hd), dtype,
 # causal, window, softcap, (rtol, atol); the first is the serving path's
 # own.  The kernel and the plain version read the same inputs and both sum
@@ -394,7 +454,15 @@ FLASH_CASES = (
     ("hubert-xlarge (phase 3h)", (8, 16, 16, 1000, 80), torch.bfloat16,
      False, 0, 0.0, (1e-2, 4e-3)),
     ("hubert-xlarge f32 (phase 4h)", (1, 16, 16, 1000, 80), torch.float32,
-     False, 0, 0.0, (2e-5, 2e-5)))
+     False, 0, 0.0, (2e-5, 2e-5)),
+    # phase 8 (a)'s gemma2-2b: a training microbatch and the prefill, on
+    # its local layers (window 4,096) and its global ones, softcap 50
+    *((f"gemma2-2b {kind}, {what} (phase 8)",
+       (batch, 8, 4, seq, 256), torch.bfloat16, True, window, 50.0,
+       (1e-2, 4e-3))
+      for what, (batch, seq) in (("training", MESH_MICROBATCH),
+                                 ("prefill", MESH_PREFILL))
+      for kind, window in (("local", 4096), ("global", 0))))
 KEY_TILE = 64                # keys per tile of csrc/flash_attention_bf16.cu
 # phase 2c: the backward kernels.  Attention cases: name, (B, Hq, Hkv, S,
 # hd), dtype, window, softcap; the first is the training path's own.  The
@@ -419,7 +487,12 @@ BWD_FLASH_CASES = (
     ("hubert-xlarge training (phase 3h)", (8, 16, 16, 1000, 80),
      torch.bfloat16, False, 0, 0.0),
     ("hubert-xlarge f32 (phase 4h)", (1, 16, 16, 1000, 80), torch.float32,
-     False, 0, 0.0))
+     False, 0, 0.0),
+    # phase 8 (a)'s gemma2-2b training microbatch, local and global layers
+    *((f"gemma2-2b {kind}, training (phase 8)",
+       (MESH_MICROBATCH[0], 8, 4, MESH_MICROBATCH[1], 256), torch.bfloat16,
+       True, window, 50.0) for kind, window in (("local", 4096),
+                                                ("global", 0))))
 BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 5e-3)}
 BWD_KEY_TILE = 64            # keys per dK/dV tile of both backward sources
 # the backward's kernels by dtype, as the profiler names them
@@ -2084,9 +2157,9 @@ def moe_inputs(fn):
     from repro_torch.models import transformer as T
     inner = T.moe_lib.apply_moe
 
-    def probed(p, x, moe_cfg):
+    def probed(p, x, moe_cfg, capacity=None):
         fn(p, x, moe_cfg)
-        return inner(p, x, moe_cfg)
+        return inner(p, x, moe_cfg, capacity)
 
     T.moe_lib.apply_moe = probed
     try:
@@ -3130,11 +3203,230 @@ def phase_training_agreement(dev, kernels, cfg):
              "CPU's")
 
 
+def start_mesh_dryrun():
+    """8 (c) in a process of its own, with no card visible: the port's
+    dry run of gemma2-2b x train_4k on pod16x16 (a fake process group of
+    256 ranks, fake CPU tensors)."""
+    import atexit
+    BACKGROUND.mkdir(parents=True, exist_ok=True)
+    out, log = BACKGROUND / "dryrun_torch", BACKGROUND / "dryrun.log"
+    shutil.rmtree(out, ignore_errors=True)
+    if not _BACKGROUND_PROCS:
+        atexit.register(_stop_background)
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(root / "src"))
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             MESH_ARCH, "--shape", "train_4k", "--out", str(out)],
+            stdout=f, stderr=subprocess.STDOUT, env=env, cwd=root,
+            start_new_session=True)
+    _BACKGROUND_PROCS.append(proc)
+    return proc, out / f"{MESH_ARCH}__train_4k__pod16x16.json", log
+
+
+def finish_mesh_dryrun(handle, timeout: float = 300.0):
+    """Waits for 8 (c), prints its record's memory and roofline terms and
+    checks ``argument_bytes`` against the reference's artifact."""
+    proc, out, log = handle
+    t0 = time.perf_counter()
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        pass
+    _stop(proc)
+    if proc.returncode or not out.exists():
+        fail(f"the dry run failed (exit {proc.returncode}): "
+             f"{log.read_text()[-3000:]}")
+    rec = json.loads(out.read_text())
+    mem = rec["memory"]
+    print(f"mesh 8 (c): dry run {rec['arch']} x {rec['shape']} x "
+          f"{rec['mesh']}: status={rec['status']} microbatches="
+          f"{rec['microbatches']} trace_s={rec['trace_s']} wall_s="
+          f"{rec['wall_s']} (joined after {time.perf_counter() - t0:.1f} s "
+          f"of waiting) memory {json.dumps(mem)}")
+    print(f"mesh 8 (c): collectives over the full-depth step (bytes a rank "
+          f"receives) {json.dumps(rec['collectives_full'])}")
+    print(f"mesh 8 (c): roofline terms, model estimates from the H100 data "
+          f"sheet's constants {json.dumps(rec['chip'])}, not measurements: "
+          f"{json.dumps(rec['roofline'])}")
+    if rec["status"] != "ok" or \
+            mem["argument_bytes"] != DRYRUN_ARGUMENT_BYTES:
+        fail(f"the dry run's argument bytes {mem['argument_bytes']} are not "
+             f"the reference's {DRYRUN_ARGUMENT_BYTES}")
+
+
+def mesh_agreement(dev, mesh):
+    """8 (b): the reduced gemma2-2b, one f32 train step (4 microbatches)
+    through ``shard_train_step`` on the card and on the CPU from the same
+    parameters and batch: the loss within 1e-5 relative, Adam's first
+    moment (0.1 of the gradient, read before the update moves anything)
+    within ``GRAD_AGREE`` of its largest entry, leaf by leaf."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.sharding import specs as S
+    from repro_torch.tree import leaves, tree_map
+    cfg = get_config(MESH_ARCH).reduced()
+    fn, _, _, p_sp, o_sp = ST.build_train_step(
+        cfg, mesh, bf16_forward=False, microbatches=MESH_MICROBATCHES)
+    cpu = T.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, MESH_AGREE, dtype=np.int32))
+    out = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        params = tree_map(lambda t: t.to(d, copy=True), cpu)
+        batch = {"tokens": toks.to(d)}
+        step = ST.shard_train_step(fn, mesh, p_sp, o_sp,
+                                   S.lm_input_specs(batch, mesh))
+        _, opt, met = step(params, get_optimizer("adam", 3e-4).init(params),
+                           batch)
+        out[where] = (float(met["loss"]), [m.cpu() for m in leaves(opt["m"])])
+    (l_card, m_card), (l_cpu, m_cpu) = out["card"], out["cpu"]
+    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+    worst = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                for a, b in zip(m_card, m_cpu))
+    ok = loss_err <= 1e-5 and worst <= GRAD_AGREE
+    print(f"mesh 8 (b): {cfg.name} f32 train step ({MESH_AGREE[0]} x "
+          f"{MESH_AGREE[1]} tokens, {MESH_MICROBATCHES} microbatches) card "
+          f"vs CPU: loss {l_card:.7f} vs {l_cpu:.7f} rel_err={loss_err:.3e} "
+          f"tol=1e-5; Adam's first moment, worst leaf {worst:.3e} of its "
+          f"largest, tol={GRAD_AGREE:g}; ok={ok}")
+    if not ok:
+        fail("the sharded train step on the card disagrees with the CPU")
+
+
+def phase_mesh(dev, kernels, dry):
+    """The mesh layer (phase 8): gemma2-2b's production steps at full width
+    and depth on the host mesh (a), the reduced model card vs CPU (b), and
+    (c) the production-mesh dry run ``dry`` (``start_mesh_dryrun``, started
+    beside phases that print no time) joined and checked."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.sharding import collectives as coll
+    from repro_torch.sharding import specs as S
+    from repro_torch.tree import leaves
+    torch.cuda.empty_cache()
+    mesh = M.make_host_mesh()
+    print(f"mesh 8: host mesh {mesh} over process group backend "
+          f"{dist.get_backend()}, world {dist.get_world_size()}")
+    cfg = get_config(MESH_ARCH)
+    B, Sq = MESH_TRAIN
+    fn, p_st, _, p_sp, o_sp = ST.build_train_step(
+        cfg, mesh, optimizer="adam", bf16_forward=True,
+        microbatches=MESH_MICROBATCHES)
+    n = sum(t.numel() for t in leaves(p_st))
+    # f32 masters, Adam's m and v, the gradients (and the update's new m,
+    # v and updates while the old ones live), the bf16 copy
+    print(f"mesh 8 (a): {cfg.name} {n:,} parameters; reckoned: f32 "
+          f"parameters + m + v + gradients {16 * n / 1e9:.1f} GB, the "
+          f"update's new m, v and updates {12 * n / 1e9:.1f} GB more, the "
+          f"bf16 copy {2 * n / 1e9:.1f} GB; of {M.hbm_bytes(dev) / 1e9:.1f} "
+          f"GB")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = T.init_model(cfg, gen, dev)
+    opt = get_optimizer("adam", 3e-4).init(params)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, Sq), device=dev,
+                                     generator=gen, dtype=torch.int32)}
+    b_sp = S.lm_input_specs(batch, mesh)
+    params = S.shard_tree(params, p_sp, mesh)    # a world of one: views
+    opt = S.shard_tree(opt, o_sp, mesh)
+    step = ST.shard_train_step(fn, mesh, p_sp, o_sp, b_sp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    coll.reset_counts()
+    times, losses = [], []
+    for _ in range(MESH_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batch)
+        losses.append(float(met["loss"]))     # synchronizes
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"mesh 8 (a): train step {B} x {Sq} tokens, "
+          f"{MESH_MICROBATCHES} microbatches, Adam, bf16 forward: ms a step "
+          f"{', '.join(f'{t:.1f}' for t in times)} (the first with warm-up);"
+          f" peak_memory_GB={peak:.2f}; losses "
+          f"{', '.join(f'{l:.4f}' for l in losses)}")
+    print(f"mesh 8 (a): launches {json.dumps(counts)}; collectives "
+          f"{json.dumps(coll.counts())}")
+    if not all(map(math.isfinite, losses)):
+        fail("mesh 8 (a): a loss is not finite")
+    least = cfg.num_layers * MESH_MICROBATCHES * MESH_TRAIN_STEPS
+    for name in ("flash_attention", "flash_attention_backward"):
+        if counts[name] < least:
+            fail(f"mesh 8 (a): {name} launched {counts[name]} times, fewer "
+                 f"than {least} ({cfg.num_layers} a microbatch)")
+    del opt, met
+    torch.cuda.empty_cache()
+
+    prefill, _, _ = ST.build_prefill_step(cfg, mesh)
+    PB, PS = MESH_PREFILL
+    toks = {"tokens": batch["tokens"][:PB, :PS]}
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(kernels.LAUNCHES)
+    with torch.no_grad():
+        prefill(params, toks)                 # warm-up
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            logits = prefill(params, toks)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    pre = launches_since(kernels, before)
+    ok = bool(torch.isfinite(logits).all()) and \
+        logits.shape == (PB, PS, cfg.vocab_size)
+    print(f"mesh 8 (a): prefill step {PB} x {PS}: ms "
+          f"{', '.join(f'{t:.1f}' for t in ms)} peak_memory_GB="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} logits "
+          f"{tuple(logits.shape)} finite={ok}; flash_attention launches "
+          f"{pre['flash_attention']}")
+    if not ok:
+        fail("mesh 8 (a): the prefill's logits are not finite")
+    for name in ("flash_attention", "flash_attention_backward"):
+        counts[name] += pre[name]
+    del logits
+
+    serve, _, _, _, _ = ST.build_serve_step(cfg, mesh, "decode_32k")
+    SB, steps = MESH_SERVE
+    state = T.init_decode_state(cfg, SB, Sq, device=dev)
+    tok = batch["tokens"][:SB, 0]
+    ms = []
+    with torch.no_grad():
+        for pos in range(steps):
+            t0 = time.perf_counter()
+            logits, state = serve(params, state, tok, pos)
+            tok = logits.argmax(-1).to(torch.int32)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    ok = bool(torch.isfinite(logits).all())
+    print(f"mesh 8 (a): serve step batch {SB}, {steps} steps: ms a step "
+          f"median {statistics.median(ms[1:]):.2f} (each "
+          f"{', '.join(f'{t:.1f}' for t in ms)}) finite={ok}")
+    if not ok:
+        fail("mesh 8 (a): the serve step's logits are not finite")
+    del params, state, logits
+    torch.cuda.empty_cache()
+
+    mesh_agreement(dev, mesh)
+    finish_mesh_dryrun(dry)
+    dist.destroy_process_group()
+    return {name: counts[name] for name in
+            ("flash_attention", "flash_attention_backward")}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on a GPU")
     t_start = time.perf_counter()
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch import kernels, resolve_device
     from repro_torch.kernels import _build
     from repro_torch.kernels import embedding_bag as eb
@@ -3226,8 +3518,10 @@ def main() -> None:
     moe = get_config(MOE_ARCH)
     params, moe_launches = phase_moe_serving(dev, kernels, moe)
     phase_done("3m")
-    # beside 4m, 4h, 4v, 4x and 7 (b, c), which print no time
+    # beside 4m, 4h, 4v, 4x and 7 (b, c), which print no time; so is
+    # 8 (c), the production mesh's dry run, which phase 8 joins
     fig15 = start_fleet_figure("fig15")
+    dry = start_mesh_dryrun()
     phase_moe_agreement(dev, params, moe)
     del params
     torch.cuda.empty_cache()
@@ -3255,11 +3549,14 @@ def main() -> None:
                                           runs=TRAIN_RUNS[1:],
                                           steps=XLSTM_TRAIN_STEPS)
     phase_done("7x")
+    mesh_launches = phase_mesh(dev, kernels, dry)
+    phase_done("8")
     # launches on the main paths: the DLRM's (phase 3), serving's (3b, 3m,
-    # 3v, 3x), the audio encoder's (3h) and training's (7 (a), 7x), each
-    # counted from 0 around its run
+    # 3v, 3x), the audio encoder's (3h), training's (7 (a), 7x) and the
+    # mesh layer's steps (8 (a)), each counted from 0 around its run
     for counts in (lm_launches, moe_launches, vlm_launches, hubert_launches,
-                   train_launches, xlstm_launches, xlstm_train_launches):
+                   train_launches, xlstm_launches, xlstm_train_launches,
+                   mesh_launches):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
 

@@ -738,6 +738,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const long long* x = st.x;
   CUtensorMap qm, km, vm, dom;
   if (!encoder()) return (int)cudaErrorNotSupported;
+  cudaError_t e = bind_device(q);
+  if (e != cudaSuccess) return (int)e;
   if (!make_map<HD, W>(&qm, q, sh.Sq, sh.Hq, B, x + Q) ||
       !make_map<HD, W>(&km, k, sh.Skv, Hkv, B, x + K) ||
       !make_map<HD, W>(&vm, v, sh.Skv, Hkv, B, x + V) ||
@@ -755,7 +757,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout), lse, lse2, delta, st, sh,
       p.stat_rows);
-  cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
   auto kb = flash_bwd_dkdv<HD, W>;

@@ -290,6 +290,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            cudaStream_t s) {
   CUtensorMap qm, km, vm;
   if (!encoder()) return (int)cudaErrorNotSupported;
+  const cudaError_t bound = bind_device(q);
+  if (bound != cudaSuccess) return (int)bound;
   if (!make_map<HD, W>(&qm, q, Sq, Hq, B, st) ||
       !make_map<HD, W>(&km, k, Skv, Hkv, B, st + 3) ||
       !make_map<HD, W>(&vm, v, Skv, Hkv, B, st + 6)) {

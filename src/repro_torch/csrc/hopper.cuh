@@ -311,6 +311,18 @@ EncodeTiled encoder() {
   return fn;
 }
 
+// Makes the primary context of the device that holds ``ptr`` current on
+// this thread.  The runtime binds a context to a thread at its first call
+// there, but the tensor-map encoder is a driver call and needs one bound
+// already: on a thread that has made no CUDA call yet (autograd's device
+// thread before its first operation) it fails.  Two host calls, no sync.
+inline cudaError_t bind_device(const void* ptr) {
+  cudaPointerAttributes a;
+  const cudaError_t err = cudaPointerGetAttributes(&a, ptr);
+  if (err != cudaSuccess) return err;
+  return cudaSetDevice(a.device);
+}
+
 // A (W, S, H, B) map of a bf16 (B, H, S, W) tensor with element strides
 // st = (batch, head, seq), boxes of (Tile<HD>::kCols, 64, 1, 1) in its
 // swizzle; rows past S read 0, and so do columns past the head dim W when

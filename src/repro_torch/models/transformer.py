@@ -25,7 +25,7 @@ recomputed span beside the residual stream, summed in the reference's
 order.
 
 Layer kinds: global and local attention, RG-LRU, MoE (attention, then
-``models.moe.apply_moe`` on the rmsnorm'd residual), and xLSTM's mLSTM
+``models.moe.apply_moe_auto`` on the rmsnorm'd residual), and xLSTM's mLSTM
 and sLSTM (``models.xlstm``; with d_ff 0 such a layer is ``x +
 block(norm1(x))``).  Front ends (stubs, as in the
 reference): an audio model (HuBERT) takes frame embeddings (B, S, d) and
@@ -145,7 +145,9 @@ def param_count(params) -> int:
 
 
 def _layer(stage, r: int):
-    """Repetition ``r`` of a stacked stage, as views."""
+    """Repetition ``r`` of a stacked stage, as views (a sharded train
+    step's ``sharding.collectives.ShardedStack`` leaves gather it here,
+    inside the layer's remat region)."""
     return tree_map(lambda t: t[r], stage)
 
 
@@ -165,11 +167,12 @@ def _layers(params, cfg: ModelConfig, stages: bool = True):
 # layer application (full-sequence)
 # --------------------------------------------------------------------------
 def _ffn(p, x, cfg: ModelConfig, kind: str, aux):
-    """The layer's second residual half: ``apply_moe`` (its aux loss added
-    to ``aux``) or the MLP, on the norm'd residual."""
+    """The layer's second residual half: ``apply_moe_auto`` (its aux loss
+    added to ``aux``) or the MLP, on the norm'd residual."""
     if kind == MOE:
-        h, a = moe_lib.apply_moe(p["moe"], L.apply_norm(p["norm2"], x,
-                                                        cfg.norm_eps), cfg.moe)
+        h, a = moe_lib.apply_moe_auto(p["moe"], L.apply_norm(p["norm2"], x,
+                                                             cfg.norm_eps),
+                                      cfg.moe)
         return x + h, aux + a
     if cfg.d_ff:
         x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["norm2"], x, cfg.norm_eps))

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding.ctx import current_policy
 
 GATES = ("z", "i", "f", "o")
 
@@ -95,8 +96,13 @@ def mlstm_forward(p, x, num_heads, chunk=256):
 
     x: (B, S, d).  Runs over chunks of length ``chunk`` carrying the
     (C, n, m) state; within a chunk the (c, c) decay matrix is
-    materialized, and only the carries are kept for the backward.
+    materialized, and only the carries are kept for the backward.  Under
+    an activation policy with ``probe_full_blocks`` (the dry run's probes)
+    the whole sequence is one chunk, as in the reference.
     """
+    pol = current_policy()
+    if pol and pol.get("probe_full_blocks"):
+        chunk = x.shape[1]
     B, S, d = x.shape
     H, hd = num_heads, d // num_heads
     c = min(chunk, S)

@@ -55,6 +55,30 @@ def tree_map(fn: Callable, tree, *rest) -> Any:
     return unflatten(tree, [fn(*xs) for xs in zip(*cols)])
 
 
+def tree_map_with_path(fn: Callable, tree) -> Any:
+    """``fn(path, leaf)`` over the leaves of ``tree``, keeping its
+    structure.  ``path`` is the leaf's key path from the root: dict keys
+    as they are (strings), sequence indices as ints; the leaves are
+    visited in ``leaves`` order (what ``jax.tree_util.tree_map_with_path``
+    gives the reference's sharding rules)."""
+    out = []
+
+    def walk(t, path):
+        if t is None:
+            return
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], path + (k,))
+        elif isinstance(t, (list, tuple)):
+            for i, sub in enumerate(t):
+                walk(sub, path + (i,))
+        else:
+            out.append(fn(path, t))
+
+    walk(tree, ())
+    return unflatten(tree, out)
+
+
 def params_from_jax(tree, device=None) -> Any:
     """A parameter tree of the reference (numpy arrays, or anything
     ``np.asarray`` takes), same layout, as tensors on ``device``."""

@@ -529,6 +529,46 @@ def test_flash_attention_kernel(card, B, Hq, Hkv, Sq, Skv, hd, causal,
                                atol=atol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_flash_attention_kernels_first_on_a_fresh_thread(card, dtype):
+    """The forward and the backward launched as the first CUDA work of a
+    new thread (as autograd's device thread runs a backward before any
+    other operation there) give what they give on the main thread.  The
+    bf16 kernels encode their TMA maps with a driver call, which needs a
+    context bound to the thread: without one they failed to launch."""
+    import threading
+
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=card).manual_seed(7)
+    q, do = (torch.randn((1, 8, 256, 256), generator=g, device=card)
+             .to(dtype) for _ in range(2))
+    k, v = (torch.randn((1, 4, 256, 256), generator=g, device=card)
+            .to(dtype) for _ in range(2))
+    out, lse = fa.flash_attention(q, k, v, True, 0, 50.0, return_lse=True)
+    want = fa.flash_attention_backward(q, k, v, out, do, True, 0, 50.0,
+                                       lse=lse)
+    got = {}
+
+    def run():
+        try:
+            got["out"] = fa.flash_attention(q, k, v, True, 0, 50.0)
+            got["grads"] = fa.flash_attention_backward(q, k, v, out, do,
+                                                       True, 0, 50.0,
+                                                       lse=lse)
+        except RuntimeError as e:
+            got["error"] = e
+    for _ in range(2):              # a new thread each time
+        got.clear()
+        t = threading.Thread(target=run)
+        t.start()
+        t.join()
+        assert "error" not in got, got.get("error")
+        torch.cuda.synchronize()
+        assert torch.equal(got["out"], out)
+        assert all(torch.equal(a, b) for a, b in zip(got["grads"], want))
+
+
 # the bf16 kernel's tiles: 64 keys, 64 query rows a warpgroup, 128 a CTA
 FLASH_BF16_EDGE_CASES = [
     # B, Hq, Hkv, Sq, Skv, hd, causal, window, softcap

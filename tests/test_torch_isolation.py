@@ -45,7 +45,12 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
               "repro_torch.launch.serve",
               "repro_torch.launch.train", "repro_torch.data.synthetic",
               "repro_torch.kernels.flash_attention",
-              "repro_torch.kernels.rglru_scan", "benchmarks_torch.run",
+              "repro_torch.kernels.rglru_scan",
+              "repro_torch.sharding.specs", "repro_torch.sharding.ctx",
+              "repro_torch.sharding.collectives", "repro_torch.launch.mesh",
+              "repro_torch.launch.steps", "repro_torch.launch.roofline",
+              "repro_torch.launch.dryrun", "repro_torch.launch.report",
+              "benchmarks_torch.run",
               "benchmarks_torch.fig7_overhead",
               "benchmarks_torch.fig14_async_save",
               "benchmarks_torch.fig15_sharded_save",
