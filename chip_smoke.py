@@ -314,13 +314,30 @@ window 4,096 and global layers with softcap 50, vocab 256,000 tied):
    share of train_4k, ``MESH_TRAIN_STEPS`` steps;
    counts reset before the first step and read after the prefill: every
    microbatch launches ``flash_attention`` and its backward at least once
-   a layer.  Then ``build_prefill_step`` at (2, 4096) and
-   ``build_serve_step`` at batch 4 for 16 steps.  Prints ms a step, the
-   peak memory, the launches and the collectives (none on one rank).
+   a layer.  Then ``build_prefill_step`` through ``shard_prefill_step`` at
+   (2, 4096) (``flash_attention`` at least once a layer a call: bf16, head
+   dim 256, softcap 50) and ``build_serve_step`` through
+   ``shard_serve_step`` at batch 4 for 16 steps, on the host mesh, where
+   every shard is the whole; their times print beside those of the
+   unsharded steps (``MESH_UNSHARDED_MS``, PERF.md section 6).  Prints ms
+   a step, the peak memory, the launches and the collectives (none on one
+   rank).
    (b) The reduced gemma2-2b, one f32 step through ``shard_train_step``
    on the card and on the CPU from the same parameters: the loss within
    1e-5 relative, Adam's first moment (0.1 of the gradient) within
-   ``GRAD_AGREE`` of its largest.  (c) The dry run of gemma2-2b x
+   ``GRAD_AGREE`` of its largest; its f32 serve step through
+   ``shard_serve_step``, card and CPU from the same state, 16 steps:
+   every step's logits within 1e-5 of the largest.
+   (d) gemma2-2b x long_500k at full width on the card: batch 1, the whole
+   524,288-slot cache filled with random bf16 keys and values (reckoned
+   in ``MESH_LONG_MERGE_POS``'s comment), 16 steps through
+   ``shard_serve_step`` at positions 524,272-524,287: ms a step, the peak
+   memory, finite logits.  Then on one global layer's cache the partial
+   attention over each of 256 pieces of 2,048 slots (pod16x16's piece),
+   merged by ``merge_pieces`` (what the sharded step's
+   ``merge_attention`` does after its all-gather), against the one-piece
+   result, both f32: within 1e-5 of the largest at pos 524,287 and at
+   196,608, where 159 pieces are empty.  (c) The dry run of gemma2-2b x
    train_4k x pod16x16 (``launch.dryrun``: a fake process group of 256
    ranks, fake CPU tensors, no card visible) in a process of its own,
    started with fig15's fleets beside 4m-7 (b, c), which print no time,
@@ -329,7 +346,8 @@ window 4,096 and global layers with softcap 50, vocab 256,000 tied):
    ``DRYRUN_ARGUMENT_BYTES``, the reference's compiled artifact's; its
    roofline terms are printed as
    model estimates from the data sheet's constants.  The process group is
-   destroyed before the last lines.
+   destroyed before the last lines.  Phases (a), (d), (b), (c) run in that
+   order.
 
 Depth cut when phases 3m and 4m arrived, so that the last phase ends by
 1,000 s of the 1,200 s limit (PERF.md section 4 gives the runs): uncut
@@ -422,7 +440,19 @@ MESH_PREFILL = (2, 4096)
 # a microbatch's (batch, tokens): phase 2b's and 2c's gemma2-2b cases
 MESH_MICROBATCH = (MESH_TRAIN[0] // MESH_MICROBATCHES, MESH_TRAIN[1])
 MESH_SERVE = (4, 16)               # batch, decode steps
+# 8 (a)'s prefill (ms of each call) and serve (median ms a step) before
+# they went through the sharded step builders (PERF.md section 6)
+MESH_UNSHARDED_MS = ("105.1-106.1", "52.63")
 MESH_AGREE = (4, 128)              # 8 (b): reduced, f32, card vs CPU
+# 8 (b): the reduced serve step, card vs CPU: batch, steps, cache length
+MESH_SERVE_AGREE = (4, 16, 128)
+# 8 (d): gemma2-2b x long_500k at full width on the one card (batch 1,
+# the whole 524,288-slot cache): 13 global layers' K and V at 1.07 GB each
+# (27.9 GB), 0.22 GB of local rings, 8.25 GB of f32 parameters, and the
+# f32 casts of one layer's K and V (4.3 GB) while it attends.  The merge
+# is checked at pos 524,287 (every slot valid) and at 196,608 (159 of the
+# 256 pieces empty); the limit is 1e-5 of the largest entry
+MESH_LONG_MERGE_POS = (524_287, 196_608)
 # 8 (c): the dry run's argument bytes per GPU of gemma2-2b x train_4k on
 # pod16x16, from the reference's compiled artifact
 # (artifacts/dryrun/gemma2-2b__train_4k__pod16x16.json, memory.argument_bytes)
@@ -3262,7 +3292,10 @@ def mesh_agreement(dev, mesh):
     through ``shard_train_step`` on the card and on the CPU from the same
     parameters and batch: the loss within 1e-5 relative, Adam's first
     moment (0.1 of the gradient, read before the update moves anything)
-    within ``GRAD_AGREE`` of its largest entry, leaf by leaf."""
+    within ``GRAD_AGREE`` of its largest entry, leaf by leaf.  Then its f32
+    serve step through ``shard_serve_step`` on the card and on the CPU from
+    the same state, ``MESH_SERVE_AGREE`` steps: the logits of every step
+    within 1e-5 of the largest."""
     from repro_torch.configs import get_config
     from repro_torch.launch import steps as ST
     from repro_torch.models import transformer as T
@@ -3296,6 +3329,68 @@ def mesh_agreement(dev, mesh):
           f"largest, tol={GRAD_AGREE:g}; ok={ok}")
     if not ok:
         fail("the sharded train step on the card disagrees with the CPU")
+
+    fn, _, _, p_sp, _ = ST.build_serve_step(cfg, mesh, "decode_32k")
+    SB, steps, W = MESH_SERVE_AGREE
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (steps, SB), dtype=np.int32))
+    state = T.init_decode_state(cfg, SB, W, device="cpu")
+    s_sp = S.decode_state_specs(state, cfg, mesh, SB)
+    out = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        params = tree_map(lambda t: t.to(d, copy=True), cpu)
+        st = tree_map(lambda t: t.to(d, copy=True), state)
+        step = ST.shard_serve_step(fn, mesh, p_sp, s_sp)
+        with torch.no_grad():
+            out[where] = [step(params, st, toks[pos].to(d), pos)[0].cpu()
+                          for pos in range(steps)]
+    worst = max(float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(out["card"], out["cpu"]))
+    ok = worst <= 1e-5
+    print(f"mesh 8 (b): {cfg.name} f32 sharded serve step, batch {SB}, "
+          f"{steps} steps, cache {W}: card vs CPU logits, worst step "
+          f"{worst:.3e} of its largest, tol=1e-5; ok={ok}")
+    if not ok:
+        fail("the sharded serve step on the card disagrees with the CPU")
+
+
+def mesh_long(dev, mesh, params, cfg):
+    """8 (d): ``cfg`` (gemma2-2b at full width) serving long_500k on the
+    one card through ``shard_serve_step`` (``profile_mesh.serve_long``: the
+    whole cache, random bf16 keys and values, 16 steps at its last
+    positions), then the attention merge at the production mesh's piece
+    size (``profile_mesh.merge_check``) on one global layer's cache."""
+    from repro_torch.launch.profile_mesh import (LONG_STEPS, MERGE_PIECES,
+                                                 merge_check, serve_long)
+    t0 = time.perf_counter()
+    ms, peak, finite, state = serve_long(cfg, mesh, params, dev)
+    glob = state["stages"][1]                 # (LOCAL_ATTN, ATTN)
+    k, v = glob["k"][0], glob["v"][0]
+    print(f"mesh 8 (d): {cfg.name} long_500k serve step, batch 1, the whole "
+          f"{k.shape[1]:,}-slot cache on the card ({k.numel() * 2 * 2 / 1e9:.2f}"
+          f" GB of K and V a global layer): {LONG_STEPS} steps, ms a step "
+          f"median {statistics.median(ms[1:]):.2f} (each "
+          f"{', '.join(f'{t:.1f}' for t in ms)}); peak_memory_GB="
+          f"{peak / 1e9:.2f}; finite={finite}")
+    if not finite:
+        fail("mesh 8 (d): the long_500k serve step's logits are not finite")
+    q = torch.randn((1, 1, cfg.num_heads, cfg.head_dim), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(2),
+                    dtype=torch.float32).to(k.dtype)
+    for pos in MESH_LONG_MERGE_POS:
+        err, empty = merge_check(cfg, k, v, q, pos)
+        ok = err <= 1e-5 and (pos < k.shape[1] - 1 or empty == 0) and \
+            (pos == k.shape[1] - 1 or empty > MERGE_PIECES // 2)
+        print(f"mesh 8 (d): merge of {MERGE_PIECES} pieces of "
+              f"{k.shape[1] // MERGE_PIECES:,} slots at pos {pos:,} ({empty} "
+              f"empty) against one piece, f32: {err:.3e} of the largest, "
+              f"tol=1e-5; ok={ok}")
+        if not ok:
+            fail("mesh 8 (d): the merged attention disagrees with the whole")
+    del state, k, v, glob
+    print(f"mesh 8 (d): {time.perf_counter() - t0:.1f} s")
+
+
 
 
 def phase_mesh(dev, kernels, dry):
@@ -3368,9 +3463,11 @@ def phase_mesh(dev, kernels, dry):
     del opt, met
     torch.cuda.empty_cache()
 
-    prefill, _, _ = ST.build_prefill_step(cfg, mesh)
+    prefill, _, p_sp = ST.build_prefill_step(cfg, mesh)
     PB, PS = MESH_PREFILL
     toks = {"tokens": batch["tokens"][:PB, :PS]}
+    prefill = ST.shard_prefill_step(prefill, mesh, p_sp,
+                                    S.lm_input_specs(toks, mesh))
     torch.cuda.reset_peak_memory_stats()
     before = dict(kernels.LAUNCHES)
     with torch.no_grad():
@@ -3384,20 +3481,27 @@ def phase_mesh(dev, kernels, dry):
     pre = launches_since(kernels, before)
     ok = bool(torch.isfinite(logits).all()) and \
         logits.shape == (PB, PS, cfg.vocab_size)
-    print(f"mesh 8 (a): prefill step {PB} x {PS}: ms "
-          f"{', '.join(f'{t:.1f}' for t in ms)} peak_memory_GB="
+    print(f"mesh 8 (a): sharded prefill step {PB} x {PS}: ms "
+          f"{', '.join(f'{t:.1f}' for t in ms)} (unsharded: "
+          f"{MESH_UNSHARDED_MS[0]}) peak_memory_GB="
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} logits "
           f"{tuple(logits.shape)} finite={ok}; flash_attention launches "
-          f"{pre['flash_attention']}")
+          f"{pre['flash_attention']} over 4 calls")
     if not ok:
         fail("mesh 8 (a): the prefill's logits are not finite")
+    if pre["flash_attention"] < 4 * cfg.num_layers:
+        fail(f"mesh 8 (a): the prefill launched flash_attention "
+             f"{pre['flash_attention']} times in 4 calls, fewer than once "
+             f"a layer")
     for name in ("flash_attention", "flash_attention_backward"):
         counts[name] += pre[name]
     del logits
 
-    serve, _, _, _, _ = ST.build_serve_step(cfg, mesh, "decode_32k")
+    serve, _, _, p_sp, _ = ST.build_serve_step(cfg, mesh, "decode_32k")
     SB, steps = MESH_SERVE
     state = T.init_decode_state(cfg, SB, Sq, device=dev)
+    serve = ST.shard_serve_step(serve, mesh, p_sp, S.decode_state_specs(
+        state, cfg, mesh, SB))
     tok = batch["tokens"][:SB, 0]
     ms = []
     with torch.no_grad():
@@ -3408,12 +3512,17 @@ def phase_mesh(dev, kernels, dry):
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
     ok = bool(torch.isfinite(logits).all())
-    print(f"mesh 8 (a): serve step batch {SB}, {steps} steps: ms a step "
-          f"median {statistics.median(ms[1:]):.2f} (each "
+    print(f"mesh 8 (a): sharded serve step batch {SB}, {steps} steps: ms a "
+          f"step median {statistics.median(ms[1:]):.2f} (unsharded: "
+          f"{MESH_UNSHARDED_MS[1]}) (each "
           f"{', '.join(f'{t:.1f}' for t in ms)}) finite={ok}")
     if not ok:
         fail("mesh 8 (a): the serve step's logits are not finite")
-    del params, state, logits
+    del state, logits, batch
+    torch.cuda.empty_cache()
+
+    mesh_long(dev, mesh, params, cfg)
+    del params
     torch.cuda.empty_cache()
 
     mesh_agreement(dev, mesh)

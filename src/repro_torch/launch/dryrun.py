@@ -24,12 +24,16 @@ backend) of 256 or 512 ranks and runs as its rank 0, on fake CPU tensors
 no kernel launches (a CPU tensor takes the plain versions).  Run it in a
 process of its own: it leaves its process group up.
 
-The rank's step is what the port would run there: the train step under
-``steps.shard_train_step`` on the rank's shards; the prefill and serve
-steps on the rank's shard of the batch with the weights whole (the port
-runs them on the host mesh), so their ``temp_bytes`` is an upper bound.
-The plain versions' attention keeps (B, H, S, S) f32 scores, so every
-``temp_bytes`` with attention is an upper bound on the kernels' too.  The
+The rank's step is what the port runs there, on the rank's shards: the
+train step under ``steps.shard_train_step``, the prefill and serve steps
+under ``steps.shard_prefill_step`` and ``steps.shard_serve_step`` (the
+weights gathered a layer at a time, the logits the rank's vocabulary
+slice; the serve step attends over the rank's piece of each KV cache and
+merges the pieces), so ``temp_bytes`` is the rank's own and
+``collectives_full`` holds the weight gathers and the attention merges.
+The serve step runs at position 0.  The plain versions' attention keeps
+(B, H, S, S) f32 scores, so a ``temp_bytes`` with full-sequence attention
+is an upper bound on the kernels'.  The
 port's train step updates the parameters in place and builds the new
 optimizer state during the step: ``temp_bytes`` holds that state, and
 ``total_bytes`` is ``argument_bytes + temp_bytes``.
@@ -133,10 +137,6 @@ def _local(structs, specs, mesh):
                     structs, specs)
 
 
-def _whole(structs):
-    return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype), structs)
-
-
 def _dp_size(mesh):
     sizes = S.axis_sizes(mesh)
     return sizes.get("data", 1) * sizes.get("pod", 1)
@@ -165,16 +165,15 @@ def build_step(cfg, shape_name: str, mesh, opt="adam", microbatches=1):
         fn, st["params"], sp["params"] = ST.build_prefill_step(
             cfg, mesh, param_dtype=bf16)
         shape = (B, shp.seq_len, cfg.vocab_size)
-        outs = _struct_bytes(S.local_shape(shape, S.guard(
-            mesh, shape, S.P(dp, None, "model")), mesh), bf16)
+        outs = _struct_bytes(S.local_shape(
+            shape, S.logits_spec(mesh, shape), mesh), bf16)
     else:  # decode
         fn, st["params"], st["state"], sp["params"], sp["state"] = \
             ST.build_serve_step(cfg, mesh, shape_name, param_dtype=bf16)
         sp["batch"] = {"tokens": S.P(bdp) if bdp else S.P()}
         shape = (B, cfg.vocab_size)
         outs = spec_bytes(st["state"], sp["state"], mesh) + _struct_bytes(
-            S.local_shape(shape, S.guard(mesh, shape, S.P(bdp, "model")),
-                          mesh), bf16)
+            S.local_shape(shape, S.logits_spec(mesh, shape), mesh), bf16)
     args = sum(spec_bytes(st[k], sp[k], mesh) for k in st)
     return shp.kind, fn, st, sp, args, outs
 
@@ -198,9 +197,7 @@ def lower_one(cfg, shape_name: str, mesh, opt="adam", probe=False,
     from torch.utils.flop_counter import FlopCounterMode
 
     shp = INPUT_SHAPES[shape_name]
-    B = shp.global_batch
-    batch_sharded = B % _dp_size(mesh) == 0
-    bf16 = getattr(torch, cfg.dtype)
+    batch_sharded = shp.global_batch % _dp_size(mesh) == 0
     kind, fn, st, sp, args, outs = build_step(cfg, shape_name, mesh, opt,
                                               microbatches)
     mode = FakeTensorMode(allow_non_fake_inputs=False)
@@ -217,21 +214,20 @@ def lower_one(cfg, shape_name: str, mesh, opt="adam", probe=False,
             def run():
                 step(lp, lo, lb)
         elif kind == "prefill":
-            wp = _whole(st["params"])
+            lp = _local(st["params"], sp["params"], mesh)
+            step = ST.shard_prefill_step(fn, mesh, sp["params"], sp["batch"])
 
             def run():
                 with torch.no_grad():
-                    fn(wp, lb)
+                    step(lp, lb)
         else:
-            wp = _whole(st["params"])
-            B_loc = B // _dp_size(mesh) if batch_sharded else B
-            from repro_torch.models import transformer as T
-            state = T.init_decode_state(cfg, B_loc, shp.seq_len, bf16,
-                                        "cpu")
+            lp = _local(st["params"], sp["params"], mesh)
+            ls = _local(st["state"], sp["state"], mesh)
+            step = ST.shard_serve_step(fn, mesh, sp["params"], sp["state"])
 
             def run():
                 with torch.no_grad():
-                    fn(wp, state, lb["tokens"], 0)
+                    step(lp, ls, lb["tokens"], 0)
 
         coll.reset_counts()
         if count:

@@ -7,13 +7,13 @@ parameter (and state) structs, and their spec trees.  A struct is a
 dtype and allocates nothing.  The reference's ``use_flash`` has no
 counterpart: the tensors' device picks the attention route.
 
-``shard_train_step`` is the counterpart of ``jax.jit(train_step,
-in_shardings=...)``: the step of one rank of a mesh on its shards.
+``shard_train_step``, ``shard_prefill_step`` and ``shard_serve_step`` are
+the counterparts of ``jax.jit(step, in_shardings=..., out_shardings=...)``
+on a mesh: the step of one rank on its shards.
 """
 from __future__ import annotations
 
 import functools
-import threading
 from typing import Any, Dict
 
 import torch
@@ -23,7 +23,8 @@ from repro_torch.models import transformer as T
 from repro_torch.optim.optimizers import apply_updates, get_optimizer
 from repro_torch.sharding import collectives as coll
 from repro_torch.sharding import specs as S
-from repro_torch.sharding.ctx import activation_sharding, current_policy
+from repro_torch.sharding.ctx import (activation_sharding, current_policy,
+                                      current_shards, rank_shards)
 from repro_torch.tree import leaves, tree_map, tree_map_with_path, unflatten
 
 
@@ -76,44 +77,57 @@ def _cast_struct(tree, dtype):
 
 
 # --------------------------------------------------------------------------
-# a rank's view of a sharded train step
+# a rank's view of a sharded step
 # --------------------------------------------------------------------------
-_tls = threading.local()
-
 _EXPERTS = ("w_gate", "w_up", "w_down")
+_VOCAB = ("embed", "lm_head")
+
+
+def _paths(spec_tree) -> dict:
+    out = {}
+    tree_map_with_path(lambda path, s: out.__setitem__(path, s), spec_tree)
+    return out
 
 
 class _Shards:
-    """The mesh and the parameter specs of a sharded train step: gathers a
-    rank's parameter shards for the forward and sums their gradients."""
+    """The mesh and the specs of a sharded step: gathers a rank's parameter
+    shards for the forward and sums their gradients (train); keeps the
+    vocabulary split (``vocab_local``: prefill and serve, whose logits are
+    the rank's slice) and gives each decode layer its ``StatePiece``
+    (``s_spec``: serve)."""
 
-    def __init__(self, mesh, p_spec, b_spec):
+    def __init__(self, mesh, p_spec, b_spec=None, s_spec=None,
+                 vocab_local=False):
         self.mesh = mesh
         self.sizes = S.axis_sizes(mesh)
         self.coords = S.mesh_coords(mesh)
         self.world = 1
         for n in self.sizes.values():
             self.world *= n
-        self.specs, self.b_specs = {}, {}
-        tree_map_with_path(lambda path, s: self.specs.__setitem__(path, s),
-                           p_spec)
-        tree_map_with_path(lambda path, s: self.b_specs.__setitem__(path, s),
-                           b_spec)
+        self.specs = _paths(p_spec)
+        self.b_specs = {} if b_spec is None else _paths(b_spec)
+        self.s_specs = {} if s_spec is None else _paths(s_spec)
+        self.vocab_local = vocab_local
+        self._pieces = {}
 
     def _keep(self, path, spec):
         """MoE experts split over "model" stay the rank's own: the expert-
         parallel layer exchanges tokens instead of weights.  (The shared
-        expert's MLP, ``moe/shared/...``, is gathered whole.)"""
+        expert's MLP, ``moe/shared/...``, is gathered whole.)  With
+        ``vocab_local`` the vocabulary dim of ``embed`` and ``lm_head``
+        keeps its axes."""
         stacked = path[0] == "stages"
         if (len(path) > 1 and path[-2] == "moe" and path[-1] in _EXPERTS
                 and spec[1 if stacked else 0] == S.TP):
             return (S.TP,)
+        if self.vocab_local and path[-1] in _VOCAB:
+            return S.axes_of(spec[0 if path[-1] == "embed" else 1])
         return ()
 
     def materialize(self, params):
         """The parameters the forward reads: each stage leaf a
         ``ShardedStack`` (gathered a layer at a time by ``_layer``), every
-        other leaf gathered whole once."""
+        other leaf gathered whole once (but over ``_keep``)."""
         def one(path, t):
             spec = self.specs[path]
             keep = self._keep(path, spec)
@@ -121,6 +135,28 @@ class _Shards:
                 return coll.ShardedStack(t, spec, self.mesh, keep)
             return coll.gather(t, spec, self.mesh, keep)
         return tree_map_with_path(one, params)
+
+    def vocab_piece(self, rows: int):
+        """(lo, axes, mesh) of the rank's slice of ``embed``'s vocabulary,
+        its ``rows`` rows from row lo, where ranks split it, else None."""
+        if not self.vocab_local or ("embed",) not in self.specs:
+            return None
+        axes = tuple(a for a in S.axes_of(self.specs[("embed",)][0])
+                     if self.sizes[a] > 1)
+        if not axes:
+            return None
+        lo, _ = S.dim_range(axes, rows, self.sizes, self.coords)
+        return lo, axes, self.mesh
+
+    def state_piece(self, path):
+        """The ``StatePiece`` of the layer whose state leaves sit at
+        ``path`` (``("stages", j)`` or ``("rest", i)``)."""
+        if path not in self._pieces:
+            cut = 1 if path[0] == "stages" else 0
+            specs = {p[-1]: S.P(*list(s)[cut:])
+                     for p, s in self.s_specs.items() if p[:-1] == path}
+            self._pieces[path] = coll.StatePiece(specs, self.mesh)
+        return self._pieces[path]
 
     def reduce_grads(self, grads):
         """The gradient of the mean of the ranks' losses: each shard's sum
@@ -160,10 +196,6 @@ class _Shards:
                                tuple(self.sizes)) / self.world
 
 
-def _current_shards():
-    return getattr(_tls, "shards", None)
-
-
 # --------------------------------------------------------------------------
 # step builders
 # --------------------------------------------------------------------------
@@ -177,7 +209,7 @@ def _split(batch, microbatches: int):
     """The batch cut into ``microbatches`` consecutive parts of its batch
     axis; in a sharded step, the rank's shards of the global batch's
     parts (``_Shards.split_batch``)."""
-    shards = _current_shards()
+    shards = current_shards()
     if shards is not None:
         return shards.split_batch(batch, microbatches)
 
@@ -208,7 +240,7 @@ def build_train_step(cfg: ModelConfig, mesh, optimizer="adam", lr=3e-4,
         if bf16_forward:
             p = tree_map(lambda a: a.to(torch.bfloat16)
                          if a.dtype == torch.float32 else a, p)
-        shards = _current_shards()
+        shards = current_shards()
         if shards is not None:
             p = shards.materialize(p)
         return T.lm_loss(p, b, cfg, remat=True)
@@ -234,7 +266,7 @@ def build_train_step(cfg: ModelConfig, mesh, optimizer="adam", lr=3e-4,
                    "nll": torch.stack(nlls).mean(),
                    "aux": torch.stack(auxs).mean()}
         grads = unflatten(params, grads)
-        shards = _current_shards()
+        shards = current_shards()
         if shards is not None:
             grads = shards.reduce_grads(grads)
             metrics = {k: shards.mean(v) for k, v in metrics.items()}
@@ -296,26 +328,76 @@ def shard_train_step(train_step, mesh, p_spec, o_spec, b_spec):
     # the input specs shard every leaf's batch axis, or none (one guard)
     batch_sharded = any(S.axes_of(e) for spec in leaves(b_spec)
                         for e in spec)
-    shards = _Shards(mesh, p_spec, b_spec)
+    return _on_rank(train_step, _Shards(mesh, p_spec, b_spec), mesh,
+                    batch_sharded)
 
-    def step(params, opt_state, batch):
-        old = _current_shards()
-        _tls.shards = shards
-        try:
+
+def _on_rank(fn, shards, mesh, batch_sharded: bool):
+    """``fn`` run with the rank's ``shards`` installed, under
+    ``activation_sharding(mesh, batch_sharded=...)`` unless a policy is
+    installed already."""
+    def step(*args):
+        with rank_shards(shards):
             if current_policy() is None:
                 with activation_sharding(mesh, batch_sharded=batch_sharded):
-                    return train_step(params, opt_state, batch)
-            return train_step(params, opt_state, batch)
-        finally:
-            _tls.shards = old
+                    return fn(*args)
+            return fn(*args)
 
     return step
 
 
+def shard_prefill_step(prefill_step, mesh, p_spec, b_spec):
+    """The prefill step of this rank of ``mesh`` (the counterpart of
+    ``jax.jit(prefill_step, in_shardings=(p_spec, b_spec),
+    out_shardings=specs.logits_spec(...))``).
+
+    The returned ``step(params, batch)`` takes the rank's shards of the
+    parameters and of the batch and returns its shard of the logits under
+    ``specs.logits_spec``: (B / dp, S, V / model) where those divide.  The
+    weights are gathered as ``shard_train_step`` gathers them (a layer at
+    a time; MoE experts split over "model" stay local), but for the
+    vocabulary of ``embed`` and ``lm_head``, which stays split: each rank
+    looks its tokens up in its slice (``transformer._embed``) and computes
+    only its slice of the logits."""
+    batch_sharded = any(S.axes_of(e) for spec in leaves(b_spec)
+                        for e in spec)
+    return _on_rank(prefill_step, _Shards(mesh, p_spec, vocab_local=True),
+                    mesh, batch_sharded)
+
+
+def shard_serve_step(serve_step, mesh, p_spec, s_spec):
+    """The serve step of this rank of ``mesh`` (the counterpart of
+    ``jax.jit(serve_step, in_shardings=(p_spec, s_spec, tokens, None),
+    out_shardings=(logits, s_spec))``).
+
+    The returned ``step(params, state, tokens, pos)`` takes the rank's
+    shards of the parameters and of the decode state (``specs.shard_tree``
+    under ``s_spec``, ``decode_state_specs``) and its tokens: their shard
+    under P(dp) where the batch divides over dp, else all of them.  It
+    returns the rank's slice of the logits (``specs.logits_spec``) and the
+    state, its shards updated in place.  The weights are gathered as
+    ``shard_prefill_step`` gathers them; each attention layer attends over
+    the rank's piece of its KV cache and merges the pieces
+    (``models.layers.attention_decode``), and each recurrent state is
+    gathered for its layer and cut back to the rank's slice
+    (``models.transformer.decode_step``).  Where the batch does not
+    divide, every rank computes the same tokens, bit for bit."""
+    specs = _paths(s_spec)
+    batch_sharded = any(S.axes_of(spec[1 if path[0] == "stages" else 0])
+                        for path, spec in specs.items())
+    return _on_rank(serve_step, _Shards(mesh, p_spec, s_spec=s_spec,
+                                        vocab_local=True),
+                    mesh, batch_sharded)
+
+
 def build_prefill_step(cfg: ModelConfig, mesh, param_dtype=None):
     """-> (prefill_step, p_struct, p_spec); ``prefill_step(params, batch)``
-    gives the logits."""
+    gives the logits (in a sharded step the rank's shards in and out:
+    ``shard_prefill_step``)."""
     def prefill_step(params, batch):
+        shards = current_shards()
+        if shards is not None:
+            params = shards.materialize(params)
         logits, _ = T.forward(params, batch, cfg)
         return logits
 
@@ -330,11 +412,15 @@ def build_serve_step(cfg: ModelConfig, mesh, shape_name: str,
                      param_dtype=None):
     """-> (serve_step, p_struct, s_struct, p_spec, s_spec);
     ``serve_step(params, state, tokens, pos) -> (logits, state)``, the
-    state updated in place."""
+    state updated in place (in a sharded step the rank's shards:
+    ``shard_serve_step``)."""
     shp = INPUT_SHAPES[shape_name]
     B, Sq = shp.global_batch, shp.seq_len
 
     def serve_step(params, state, tokens, pos):
+        shards = current_shards()
+        if shards is not None:
+            params = shards.materialize(params)
         return T.decode_step(params, state, tokens, pos, cfg)
 
     p_struct = param_structs(cfg)

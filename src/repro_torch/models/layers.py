@@ -25,6 +25,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import LOCAL_ATTN
 from repro_torch.kernels import ops
+from repro_torch.sharding import collectives as coll
+from repro_torch.sharding.specs import P
 
 
 # --------------------------------------------------------------------------
@@ -161,19 +163,35 @@ def _project_qkv(p, x, cfg):
     return tuple(out)
 
 
-def _sdpa(q, k, v, mask, softcap=0.0):
-    """q: (B,S,Hq,hd) k/v: (B,T,Hkv,hd); GQA via head grouping; mask
-    (B,S,T).  Plain f32 attention (the decode step's)."""
+def _scores(q, k, mask, softcap):
+    """q: (B,S,Hq,hd) k: (B,T,Hkv,hd); GQA via head grouping; mask
+    (B,S,T) -> f32 logits (B,Hkv,g,S,T), softcapped, -1e30 where masked."""
     B, S, Hq, hd = q.shape
     Hkv = k.shape[2]
-    g = Hq // Hkv
-    qf = q.float().reshape(B, S, Hkv, g, hd)
+    qf = q.float().reshape(B, S, Hkv, Hq // Hkv, hd)
     logits = torch.einsum("bskgd,btkd->bkgst", qf, k.float()) / math.sqrt(hd)
     logits = _softcap(logits, softcap)
-    logits = torch.where(mask[:, None, None], logits, -1e30)
+    return torch.where(mask[:, None, None], logits, -1e30)
+
+
+def _sdpa(q, k, v, mask, softcap=0.0):
+    """Plain f32 attention (the decode step's), in q's dtype."""
+    probs = torch.softmax(_scores(q, k, mask, softcap), dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def partial_attention(q, k, v, mask, softcap=0.0):
+    """``_sdpa`` over one piece of a cache, in f32, with each row's
+    log-sum-exp over its valid keys -> (out (B,S,Hq,hd), lse (B,S,Hq); -inf
+    where a row has no valid key): what
+    ``sharding.collectives.merge_attention`` combines across pieces."""
+    logits = _scores(q, k, mask, softcap)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
-    return out.reshape(B, S, Hq, hd).to(q.dtype)
+    lse = torch.where(mask.any(-1)[:, None, None],
+                      torch.logsumexp(logits, dim=-1), -math.inf)
+    return out.reshape(q.shape), lse.permute(0, 3, 1, 2).reshape(q.shape[:3])
 
 
 def attention_forward(p, x, cfg, kind, positions):
@@ -218,35 +236,68 @@ def _quantize_kv(x):
     return q, s.to(torch.bfloat16)
 
 
-def attention_decode(p, x, cache, pos: int, cfg, kind):
+def _write_slot(t, new, slot: int, piece, name: str):
+    """Cache leaf ``t`` (B, W, heads, ...) takes the new token's ``new``
+    (B, all kv heads, ...) at global slot ``slot``: the whole leaf, or the
+    rank's ``piece`` of it (its heads, and only if it holds the slot)."""
+    lo, hi = (0, t.shape[1]) if piece is None else \
+        piece.range(name, 1, t.shape[1])
+    h0, h1 = (0, t.shape[2]) if piece is None else \
+        piece.range(name, 2, t.shape[2])
+    if lo <= slot < hi:
+        t[:, slot - lo] = new[:, h0:h1].to(t.dtype)
+
+
+def attention_decode(p, x, cache, pos: int, cfg, kind, piece=None):
     """One-token decode step.  x: (B, 1, d); pos: int, the same for the
     whole batch (under M-RoPE, for all three streams, as the reference
     rotates).  Keys are rotated at insert time so the ring buffer never
     re-rotates.  Writes the new token into ``cache`` in place (slot
-    pos % W) and returns (y, cache)."""
+    pos % W) and returns (y, cache).
+
+    With a ``piece`` (``sharding.collectives.StatePiece``: a sharded serve
+    step) ``cache`` holds the rank's piece of each leaf: slots [lo, lo +
+    W_loc) of the ring's W and a range of its kv heads.  The slot and the
+    validity rule go by global index; only the rank holding slot pos % W
+    writes it; the rank attends its kv heads' query heads over its slots
+    (``partial_attention``), the pieces are merged over the axes that
+    split the slots and the heads' outputs gathered over those that split
+    the heads, before ``wo``."""
     B = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg)
     posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     if cfg.mrope:
         posb = posb[None].expand(3, B, 1)
     q, k = _position_rotary(q, k, posb, cfg)
-    W = cache["k"].shape[1]
+    Wl = cache["k"].shape[1]
+    lo, W = 0, Wl
+    if piece is not None:
+        lo, _ = piece.range("k", 1, Wl)
+        W = piece.extent("k", 1, Wl)
+        h0, h1 = piece.range("k", 2, cache["k"].shape[2])
+        g = cfg.num_heads // cfg.num_kv_heads
+        q = q[:, :, h0 * g:h1 * g]
     slot = pos % W
     if "ks" in cache:
         for name, t in (("k", k), ("v", v)):
             tq, ts = _quantize_kv(t)
-            cache[name][:, slot] = tq[:, 0]
-            cache[name + "s"][:, slot] = ts[:, 0]
-        # dequantize for the attention reads
-        ck = (cache["k"].float() * cache["ks"].float()[..., None]).to(x.dtype)
-        cv = (cache["v"].float() * cache["vs"].float()[..., None]).to(x.dtype)
+            _write_slot(cache[name], tq[:, 0], slot, piece, name)
+            _write_slot(cache[name + "s"], ts[:, 0], slot, piece, name + "s")
+        # dequantize for the attention reads; a rank's scales are whole
+        # over the slots and heads (``decode_state_specs`` splits them
+        # over the batch only): the piece's are cut out
+        ks, vs = cache["ks"], cache["vs"]
+        if piece is not None:
+            ks, vs = ks[:, lo:lo + Wl, h0:h1], vs[:, lo:lo + Wl, h0:h1]
+        ck = (cache["k"].float() * ks.float()[..., None]).to(x.dtype)
+        cv = (cache["v"].float() * vs.float()[..., None]).to(x.dtype)
     else:
-        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+        _write_slot(cache["k"], k[:, 0], slot, piece, "k")
+        _write_slot(cache["v"], v[:, 0], slot, piece, "v")
         ck, cv = cache["k"], cache["v"]
     # validity: slot t holds absolute position p_t; with ring writes,
     # valid iff its position <= pos and within window (local) / history.
-    idx = torch.arange(W, device=x.device)
+    idx = torch.arange(lo, lo + Wl, device=x.device)
     wraps = (pos // W) * W + idx
     abs_pos = torch.where(idx <= slot, wraps, wraps - W)
     valid = abs_pos >= 0
@@ -254,8 +305,15 @@ def attention_decode(p, x, cache, pos: int, cfg, kind):
         valid &= (pos - abs_pos) < cfg.sliding_window
     else:
         valid &= abs_pos <= pos
-    mask = valid[None, None, :].expand(B, 1, W)
-    out = _sdpa(q, ck, cv, mask, cfg.attn_softcap)
+    mask = valid[None, None, :].expand(B, 1, Wl)
+    if piece is not None and piece.seq_axes:
+        o, lse = partial_attention(q, ck, cv, mask, cfg.attn_softcap)
+        out = coll.merge_attention(o, lse, piece.mesh,
+                                   piece.seq_axes).to(q.dtype)
+    else:
+        out = _sdpa(q, ck, cv, mask, cfg.attn_softcap)
+    if piece is not None and piece.head_axes:
+        out = coll.gather(out, P(None, None, piece.head_axes), piece.mesh)
     return out.reshape(B, 1, -1) @ p["wo"].to(x.dtype), cache
 
 

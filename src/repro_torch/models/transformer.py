@@ -48,6 +48,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import xlstm as xlstm_lib
+from repro_torch.sharding import collectives as coll
+from repro_torch.sharding.ctx import current_shards
 # one conversion carries any of the reference's parameter trees across
 from repro_torch.tree import params_from_jax  # noqa: F401  (re-export)
 from repro_torch.tree import leaves, tree_map
@@ -197,8 +199,21 @@ def apply_layer(p, x, aux, cfg: ModelConfig, kind: str, positions):
 
 def _embed(params, tokens, cfg: ModelConfig):
     """Gather, then cast: the same values as the reference's cast-then-
-    gather without casting the whole table."""
-    x = params["embed"][tokens.long()].to(_dtype(cfg))
+    gather without casting the whole table.  In a sharded prefill or serve
+    step ``embed`` is the rank's vocabulary slice: each rank looks up the
+    tokens it holds (zeros elsewhere), summed over the axes that split the
+    vocabulary (one term is not zero: the sum is exact)."""
+    table = params["embed"]
+    shards = current_shards()
+    vocab = None if shards is None else shards.vocab_piece(table.shape[0])
+    if vocab is None:
+        x = table[tokens.long()].to(_dtype(cfg))
+    else:
+        lo, axes, mesh = vocab
+        ids = tokens.long() - lo
+        mine = (ids >= 0) & (ids < table.shape[0])
+        x = table[ids.clamp(0, table.shape[0] - 1)].to(_dtype(cfg))
+        x = coll.all_reduce(torch.where(mine[..., None], x, 0), mesh, axes)
     if cfg.tie_embeddings:
         x = x * (cfg.d_model ** 0.5)  # gemma-style lookup scaling
     return x
@@ -228,6 +243,9 @@ def embed_inputs(params, batch, cfg: ModelConfig):
 
 
 def unembed(params, x, cfg: ModelConfig, normed: bool = False):
+    """The logits of the final norm'd ``x``; in a sharded prefill or serve
+    step ``embed`` (``lm_head``) is the rank's vocabulary slice, so these
+    are the rank's slice of the logits, never the whole."""
     h = x if normed else L.apply_norm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = h @ params["embed"].to(h.dtype).T
@@ -388,9 +406,12 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     return {"stages": stages, "rest": rest}
 
 
-def apply_layer_decode(p, x, state, pos: int, cfg: ModelConfig, kind: str):
+def apply_layer_decode(p, x, state, pos: int, cfg: ModelConfig, kind: str,
+                       piece=None):
     """One layer, one token -> (x, new state).  A KV cache is written in
-    place; the recurrent state comes back as new tensors."""
+    place; the recurrent state comes back as new tensors.  ``piece``: the
+    rank's ``StatePiece`` of the layer's state in a sharded serve step
+    (its KV cache is the rank's piece; a recurrent state comes gathered)."""
     _check_kind(kind)
     h = L.apply_norm(p["norm1"], x, cfg.norm_eps)
     if kind == RECURRENT:
@@ -400,28 +421,42 @@ def apply_layer_decode(p, x, state, pos: int, cfg: ModelConfig, kind: str):
     elif kind == SLSTM:
         h, state = xlstm_lib.slstm_decode(p["slstm"], h, state, cfg.num_heads)
     else:
-        h, state = L.attention_decode(p["attn"], h, state, pos, cfg, kind)
+        h, state = L.attention_decode(p["attn"], h, state, pos, cfg, kind,
+                                      piece)
     x, _ = _ffn(p, x + h, cfg, kind, 0.0)
     return x, state
 
 
 def _layer_states(state, cfg: ModelConfig):
-    """Every layer's state, in depth order, as views of the stacked one."""
+    """(path, state) of every layer, in depth order: the path of its leaves
+    in the state tree (``("stages", j)``, whose leaves are stacked, or
+    ``("rest", i)``) and its state as views of the stacked one."""
     P = len(cfg.block_pattern)
     R = cfg.num_layers // P
     for r in range(R):
         for j in range(P):
-            yield _layer(state["stages"][j], r)
-    yield from state["rest"]
+            yield ("stages", j), _layer(state["stages"][j], r)
+    for i, st in enumerate(state["rest"]):
+        yield ("rest", i), st
 
 
 def decode_step(params, state, tokens, pos: int, cfg: ModelConfig):
     """One decode step.  tokens: (B,) integer tensor; pos: int.  Returns
-    (logits (B, V), state), the state updated in place."""
+    (logits (B, V), state), the state updated in place.
+
+    In a sharded serve step (``launch.steps.shard_serve_step``) ``state``
+    holds the rank's shards: each layer attends over its piece of the KV
+    cache, and a recurrent state is gathered for its layer, and only the
+    rank's slice of the new one is written back."""
+    shards = current_shards()
     x = _embed(params, tokens, cfg)[:, None]                    # (B, 1, d)
-    for (p, kind), st in zip(_layers(params, cfg), _layer_states(state, cfg)):
-        x, new = apply_layer_decode(p, x, st, pos, cfg, kind)
+    for (p, kind), (path, st) in zip(_layers(params, cfg),
+                                     _layer_states(state, cfg)):
+        piece = None if shards is None else shards.state_piece(path)
+        x, new = apply_layer_decode(p, x, st if piece is None
+                                    else piece.gather(st), pos, cfg, kind,
+                                    piece)
         for name, t in new.items():
             if t is not st[name]:
-                st[name].copy_(t)
+                st[name].copy_(t if piece is None else piece.own(name, t))
     return unembed(params, x, cfg)[:, 0], state

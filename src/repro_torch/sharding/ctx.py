@@ -29,6 +29,11 @@ The reference's other readers, the blocked jnp attention of
 have no counterpart: the port's attention is always
 ``ops.flash_attention`` or its plain version, which has no blocks to
 probe.
+
+A sharded step of ``launch.steps`` installs its rank's shards as well
+(``rank_shards``); the models read them with ``current_shards()`` where a
+rank computes on its piece: ``models.transformer`` looks tokens up in the
+rank's vocabulary slice and hands each decode layer its ``StatePiece``.
 """
 from __future__ import annotations
 
@@ -42,6 +47,24 @@ _tls = threading.local()
 
 def current_policy():
     return getattr(_tls, "policy", None)
+
+
+def current_shards():
+    """The rank's shards of the sharded step running on this thread
+    (``launch.steps._Shards``), or None."""
+    return getattr(_tls, "shards", None)
+
+
+@contextlib.contextmanager
+def rank_shards(shards):
+    """Install a sharded step's ``shards`` (thread-local, restored on
+    exit)."""
+    old = current_shards()
+    _tls.shards = shards
+    try:
+        yield shards
+    finally:
+        _tls.shards = old
 
 
 @contextlib.contextmanager

@@ -22,7 +22,9 @@ a tuple of axis names.  The rules read only a mesh's axis names and sizes,
 so they take a ``torch.distributed`` ``DeviceMesh`` or a ``MeshShape``
 stand-in (no process group).  ``to_placements`` turns a spec into the
 ``torch.distributed.tensor`` placements of a ``DeviceMesh`` (the port's
-``to_shardings``); ``local_shape`` and ``shard_tree`` give a rank's shard.
+``to_shardings``); ``local_shape`` and ``shard_tree`` give a rank's shard,
+``dim_range`` its index range along one dim; ``logits_spec`` is the
+reference's dry run's spec of the prefill and serve steps' logits.
 """
 from __future__ import annotations
 
@@ -229,6 +231,15 @@ def decode_state_specs(state_tree, cfg, mesh, batch: int):
     return tree_map_with_path(rule, state_tree)
 
 
+def logits_spec(mesh, shape) -> P:
+    """The logits' spec of the reference's dry run: (B, S, V) prefill
+    logits ``P(dp, None, "model")``, (B, V) serve logits ``P(dp, "model")``,
+    guarded (the batch entry drops where B does not divide over dp)."""
+    dp = batch_axes(mesh)
+    spec = P(dp, None, TP) if len(shape) == 3 else P(dp, TP)
+    return guard(mesh, shape, spec)
+
+
 def dlrm_param_specs(params, mesh):
     """DLRM: tables row-sharded over "model" (the Emb-PS partitioning),
     MLPs replicated (data-parallel trainers)."""
@@ -286,6 +297,14 @@ def shard_index(entry, sizes: dict, coords: dict) -> int:
     for a in axes_of(entry):
         idx = idx * sizes[a] + coords[a]
     return idx
+
+
+def dim_range(entry, local_n: int, sizes: dict, coords: dict) -> tuple:
+    """The global index range [lo, hi) of a rank's ``local_n`` entries
+    along a dim split over ``entry``'s axes (a KV cache's slots, its kv
+    heads, a vocabulary)."""
+    lo = shard_index(entry, sizes, coords) * local_n
+    return lo, lo + local_n
 
 
 def mesh_coords(device_mesh) -> dict:

@@ -1211,3 +1211,25 @@ def test_reduced_qwen2_vl_on_the_card_matches_the_cpu(card):
     a, _ = serve(cfg, reqs, batch=2, gen=8, params=gpu, device=card)
     b, _ = serve(cfg, reqs, batch=2, gen=8, params=cpu, device="cpu")
     assert a == b
+
+
+@pytest.mark.parametrize("pos", [524_287, 196_608])
+def test_attention_merge_at_the_production_piece_size(card, pos):
+    """gemma2-2b x long_500k on pod16x16: one global layer's bf16 cache of
+    524,288 slots in 256 pieces of 2,048; the pieces' f32 partial
+    attentions merged (``merge_pieces``) against the one-piece result
+    within 1e-5 of its largest entry, with every slot valid and with 159
+    pieces empty."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.profile_mesh import MERGE_PIECES, merge_check
+
+    cfg = get_config("gemma2-2b")
+    g = torch.Generator(device=card).manual_seed(0)
+    shape = (1, 524_288, cfg.num_kv_heads, cfg.head_dim)
+    k = torch.randn(shape, generator=g, device=card).to(torch.bfloat16)
+    v = torch.randn(shape, generator=g, device=card).to(torch.bfloat16)
+    q = torch.randn((1, 1, cfg.num_heads, cfg.head_dim), generator=g,
+                    device=card).to(torch.bfloat16)
+    err, empty = merge_check(cfg, k, v, q, pos)
+    assert empty == (0 if pos == 524_287 else 159)
+    assert MERGE_PIECES == 256 and err <= 1e-5

@@ -13,7 +13,9 @@
   same inputs (the time terms each with its own chip's constants);
 * one dry run of a reduced pair in a process of its own (a fake process
   group of 256 ranks) writes a well-formed record, and ``report`` renders
-  it.
+  it; one of the reduced gemma2-2b x long_500k decode pair runs the
+  sharded serve step: the attention merge's all-gathers are counted, and
+  the rank's peak stays below one global layer's whole K cache.
 """
 import dataclasses
 import json
@@ -190,3 +192,32 @@ def test_reduced_dry_run_writes_record_and_report_renders_it(tmp_path):
     assert "| qwen3-moe-30b-a3b | train_4k | pod16x16 | ok | 1 |" in text
     assert "989 TFLOP/s" in text and "v5e" not in text
     assert text.count("| qwen3-moe-30b-a3b | train_4k |") == 2
+
+
+def test_reduced_decode_dry_run_runs_the_sharded_serve_step(tmp_path):
+    """gemma2-2b x long_500k (batch 1) on pod16x16: the cache's 524,288
+    slots split over ("data", "model"), 2,048 a rank; the rank's step
+    gathers weights and merges its attention with the other 255 pieces."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "gemma2-2b", "--shape", "long_500k", "--reduced", "--no-probes",
+         "--out", str(tmp_path)], env=env, cwd=ROOT, capture_output=True,
+        text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    rec = json.loads(
+        (tmp_path / "gemma2-2b__long_500k__pod16x16.json").read_text())
+    assert rec["status"] == "ok"
+    cfg = get_config("gemma2-2b").reduced()
+    mesh = S.MeshShape(*MESHES["pod16x16"])
+    assert rec["memory"]["argument_bytes"] == D.argument_bytes(
+        cfg, "long_500k", mesh)
+    calls = rec["collectives_full"]["calls"]
+    # the weights of both layers over both axes, and each layer's merge
+    # over both axes (its cache's slots split over ("data", "model"))
+    assert calls["all-gather"] >= 2 * 2 * 2
+    assert rec["collectives_full"]["all-gather"] > 0
+    whole_k = (INPUT_SHAPES["long_500k"].seq_len * cfg.num_kv_heads
+               * cfg.head_dim * 4)                    # f32, batch 1
+    assert 0 < rec["memory"]["temp_bytes"] < whole_k
