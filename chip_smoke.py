@@ -349,6 +349,28 @@ window 4,096 and global layers with softcap 50, vocab 256,000 tied):
    destroyed before the last lines.  Phases (a), (d), (b), (c) run in that
    order.
 
+The port's invariant tools (``repro_torch.analysis``) on the card's host:
+
+9. (a) ``run_analysis()`` over the port with all seven rules: 0
+   unsuppressed (files, findings and suppressed findings printed).
+   (b) The protocol model check (fast scope): the baseline holds every
+   invariant, every seeded mutant is caught (``run_check`` returns 0;
+   states and counterexample lengths printed).  (c) The lock-order
+   sanitizer, installed before the workload builds anything and
+   uninstalled in a ``finally``, over the CPR manager on the card
+   (``cpr-mfu``, sharded asynchronous saves, the scaled Kaggle config, 2
+   injected failures, ``ANALYSIS_STEPS`` steps) and a socket fleet of
+   CUDA tables over shard servers on threads, one shard killed and
+   re-admitted; run on a thread of its own, a hang past
+   ``ANALYSIS_LIMIT_S`` fails the script.  It must track a lock from each
+   of ``ANALYSIS_SITES``, leave an acyclic graph (sites and edges
+   printed), and see ``tracker_select``, ``row_hash`` and
+   ``embedding_bag`` launched inside its window (the card's branches:
+   the kernel ledger, the page-locked snapshots).  (d) The spec-derived
+   fuzz of the port's shard server, ``FUZZ_FRAMES`` frames, the fleet's
+   tables on the card: ``ok``, every frame sent, at least one ``stale``
+   reply.  Each part prints its seconds, the phase its total.
+
 Depth cut when phases 3m and 4m arrived, so that the last phase ends by
 1,000 s of the 1,200 s limit (PERF.md section 4 gives the runs): uncut
 the script ended its last phase at 1,040.9 s; a first round of cuts took
@@ -374,7 +396,8 @@ was cut.
 
 Phases run in the order 1, 2, 3, 4 (fig16 and fig17 beside it), 2b, 2c,
 5, 6 (fig15 at full width), 3b, 4b, 3h, 3v, 3m, 4m, 4h, 4v, 4x, 7 (b, c)
-(fig15's fleets and 8 (c)'s dry run beside these six), 7 (a), 3x, 7x, 8.
+(fig15's fleets and 8 (c)'s dry run beside these six), 7 (a), 3x, 7x, 8,
+9.
 The script prints its time after every phase.  The last two lines are ``{"kernels": [...]}`` and
 ``{"ok": true, ...}``.
 """
@@ -457,6 +480,19 @@ MESH_LONG_MERGE_POS = (524_287, 196_608)
 # pod16x16, from the reference's compiled artifact
 # (artifacts/dryrun/gemma2-2b__train_4k__pod16x16.json, memory.argument_bytes)
 DRYRUN_ARGUMENT_BYTES = 98_384_900
+# phase 9: the port's invariant tools on the card host.  9 (c)'s workload
+# is tests/test_torch_lockorder.py's failover manager (the scaled Kaggle
+# config, 2 injected failures, ANALYSIS_STEPS steps) on the card, then a
+# socket fleet of the scaled config's tables (d = 16) on the card over
+# ANALYSIS_SHARDS shard servers on threads; a hang fails the phase after
+# ANALYSIS_LIMIT_S seconds.  9 (d) fires FUZZ_FRAMES frames
+ANALYSIS_STEPS = 12
+ANALYSIS_SHARDS = 2
+ANALYSIS_LIMIT_S = 120.0
+# the sites 9 (c) must see a lock constructed at, at least one each
+ANALYSIS_SITES = ("core/transport.py", "core/sharded_checkpoint.py",
+                  "launch/shard_server.py")
+FUZZ_FRAMES = 200
 # flash_attention cases of phase 2b: name, (B, Hq, Hkv, S, hd), dtype,
 # causal, window, softcap, (rtol, atol); the first is the serving path's
 # own.  The kernel and the plain version read the same inputs and both sum
@@ -3532,6 +3568,188 @@ def phase_mesh(dev, kernels, dry):
             ("flash_attention", "flash_attention_backward")}
 
 
+def _analysis_workload(dev, root):
+    """9 (c)'s workload, run on a thread of its own: the CPR manager's
+    sharded, asynchronous fleet on the card under injected failures (the
+    tracker kernel's backend), then a socket fleet of CUDA tables over
+    shard servers on threads, one shard killed and re-admitted.  Raises
+    on a failed check, for the main thread to report."""
+    from repro_torch import core as C
+    from repro_torch.configs.dlrm import DLRM_KAGGLE, scaled
+    from repro_torch.data.synthetic import ClickLogDataset
+    from repro_torch.launch import shard_server
+    cfg = scaled(DLRM_KAGGLE, max_rows=2000)
+    ds = ClickLogDataset(cfg.table_sizes, num_samples=4000, seed=3)
+    p = C.SystemParams()
+    mgr = C.CPRManager("cpr-mfu", p, cfg.table_sizes, target_pls=0.1,
+                       sharded_save=True, async_save=True,
+                       tracker_backend="kernel",
+                       directory=str(root / "manager"), device=dev)
+    C.Emulator(cfg, ds, mgr, C.FailureInjector(2, 0.25, p.N_emb, p.T_total,
+                                               seed=11),
+               batch_size=256, device=dev).run(max_steps=ANALYSIS_STEPS)
+    failures = sum(h["event"] == "failure" for h in mgr.history)
+    if not failures:
+        raise RuntimeError("the manager saw no failure")
+
+    ready, addr = threading.Event(), {}
+
+    def bound(h, port):
+        addr["hp"] = (h, port)
+        ready.set()
+
+    threading.Thread(target=shard_server.serve, args=("127.0.0.1", 0, bound),
+                     name="chip-smoke-shard-server", daemon=True).start()
+    if not ready.wait(10.0):
+        raise RuntimeError("the shard server did not bind")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tables = [torch.randn(n, cfg.emb_dim, generator=gen, device=dev)
+              for n in cfg.table_sizes]
+    accs = [torch.rand(n, generator=gen, device=dev)
+            for n in cfg.table_sizes]
+    spec = C.EmbShardSpec(cfg.table_sizes, ANALYSIS_SHARDS)
+    fleet = C.ShardedCheckpointWriter(
+        tables, accs, spec, directory=str(root / "socket"), backend="socket",
+        addresses=[addr["hp"]] * ANALYSIS_SHARDS, delta_saves=True,
+        drain_timeout=30.0)
+    fleet.save_full([t + 1 for t in tables], [a + 1 for a in accs], step=1)
+    fleet.fence()
+    fleet.kill_shard(1)
+    fleet.save_full([t + 2 for t in tables], [a + 2 for a in accs], step=2)
+    try:
+        fleet.fence()
+    except C.ShardSaveError as e:
+        refused = sorted(e.shard_errors)
+    else:
+        refused = []
+    if refused != [1]:
+        raise RuntimeError(f"the fence after the kill refused shards "
+                           f"{refused}, not [1]")
+    back = fleet.readmit([t + 2 for t in tables], [a + 2 for a in accs],
+                         step=3)
+    fleet.fence()
+    got, _, _ = fleet.restore_all()
+    fleet.close()
+    same = all(np.array_equal(g, (t + 2).cpu().numpy())
+               for g, t in zip(got, tables))
+    print(f"analysis 9 (c): manager cpr-mfu, {ANALYSIS_STEPS} steps, "
+          f"{failures} failure(s); socket fleet of {len(tables)} tables on "
+          f"{dev} over {ANALYSIS_SHARDS} shard servers on threads: shard 1 "
+          f"killed, re-admitted {back}, image equal after the re-admission="
+          f"{same}")
+    if back != [1] or not same:
+        raise RuntimeError("the socket fleet's re-admission failed")
+
+
+def phase_analysis(dev, kernels):
+    """The port's invariant tools on the card host (phase 9)."""
+    from repro_torch.analysis import CHECKERS, run_analysis
+    from repro_torch.analysis.lockorder import LockOrderSanitizer
+    from repro_torch.analysis.protocol import model
+    from repro_torch.analysis.protocol.fuzz import run_fuzz
+    shutil.rmtree(SCRATCH / "analysis", ignore_errors=True)
+    (SCRATCH / "analysis").mkdir(parents=True)
+    t_phase = time.perf_counter()
+
+    t0 = time.perf_counter()
+    report = run_analysis()
+    counts = report.to_json()["counts"]
+    print(f"analysis 9 (a): {len(CHECKERS)} rules over {report.root}: "
+          f"{report.files_scanned} file(s), {counts['total']} finding(s), "
+          f"{counts['suppressed']} suppressed, {counts['unsuppressed']} "
+          f"unsuppressed ({time.perf_counter() - t0:.2f} s)")
+    if len(CHECKERS) != 7 or not report.ok:
+        fail("analysis 9 (a): the port's rules do not hold over the port:\n"
+             + "\n".join(f.render() for f in report.unsuppressed))
+
+    t0 = time.perf_counter()
+    base = model.explore(model.FAST)
+    caught = {name: model.explore(model.FAST, mutant=name)
+              for name in sorted(model.MUTANTS)}
+    rc = model.run_check(fast=True, quiet=True)
+    print(f"analysis 9 (b): model check (fast): baseline {base.states} "
+          f"states / {base.transitions} transitions, violation "
+          f"{base.violation}; mutants caught: "
+          + ", ".join(f"{n} [{r.violation.invariant if r.violation else None}"
+                      f", trace {len(r.trace)}]" for n, r in caught.items())
+          + f"; run_check {rc} ({time.perf_counter() - t0:.2f} s)")
+    if rc != 0 or base.violation is not None or not all(
+            r.violation is not None for r in caught.values()):
+        fail("analysis 9 (b): the model check failed")
+
+    # installed before the workload builds anything, so every lock the
+    # port's source constructs in it is tracked
+    t0 = time.perf_counter()
+    san = LockOrderSanitizer()
+    sites = set()
+    wrap = san.wrap
+
+    def recording(inner, site):
+        sites.add(site)
+        return wrap(inner, site)
+
+    san.wrap = recording
+    kernels.reset_launches()
+    errors = []
+
+    def work():
+        try:
+            _analysis_workload(dev, SCRATCH / "analysis")
+        except BaseException as e:   # reported by the main thread below
+            errors.append(e)
+            raise
+
+    san.install()
+    try:
+        worker = threading.Thread(target=work, name="chip-smoke-analysis",
+                                  daemon=True)
+        worker.start()
+        worker.join(ANALYSIS_LIMIT_S)
+    finally:
+        san.uninstall()
+    launches = dict(kernels.LAUNCHES)
+    if worker.is_alive():
+        print(f"chip_smoke: analysis 9 (c): the workload did not end within "
+              f"{ANALYSIS_LIMIT_S:.0f} s", file=sys.stderr, flush=True)
+        sys.stdout.flush()
+        _stop_background()
+        os._exit(1)             # the hung thread would block a normal exit
+    if errors:
+        fail(f"analysis 9 (c): the workload failed: {errors[0]!r}")
+    edges = san.edges()
+    cycle = san.find_cycle()
+    print(f"analysis 9 (c): {san.tracked_constructions} tracked "
+          f"construction(s) at {len(sites)} site(s): {sorted(sites)}")
+    print(f"analysis 9 (c): {len(edges)} ordered edge(s): "
+          + "; ".join(f"{a} -> {b} ({th})" for (a, b), th in
+                      sorted(edges.items()))
+          + f"; cycle {cycle}; launches {json.dumps(launches)} "
+          f"({time.perf_counter() - t0:.2f} s)")
+    missing = [s for s in ANALYSIS_SITES
+               if not any(x.startswith(s + ":") for x in sites)]
+    if missing:
+        fail(f"analysis 9 (c): no lock tracked from {missing}")
+    if cycle is not None:
+        fail(f"analysis 9 (c): lock-order cycle {cycle}")
+    for name in ("tracker_select", "row_hash", "embedding_bag"):
+        if launches[name] == 0:
+            fail(f"analysis 9 (c): {name} was not launched under the "
+                 f"sanitizer")
+
+    t0 = time.perf_counter()
+    stats = run_fuzz(frames=FUZZ_FRAMES, seed=0,
+                     root=str(SCRATCH / "analysis" / "fuzz"), device=dev)
+    print(f"analysis 9 (d): fuzz of the port's shard server, the fleet's "
+          f"tables on {dev}: {json.dumps(stats)} "
+          f"({time.perf_counter() - t0:.2f} s)")
+    if not stats["ok"] or stats["frames"] < FUZZ_FRAMES or \
+            stats["replies"].get("stale", 0) < 1:
+        fail("analysis 9 (d): the fuzz's stats fall short")
+    shutil.rmtree(SCRATCH / "analysis", ignore_errors=True)
+    print(f"analysis 9: {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on a GPU")
@@ -3660,12 +3878,15 @@ def main() -> None:
     phase_done("7x")
     mesh_launches = phase_mesh(dev, kernels, dry)
     phase_done("8")
+    analysis_launches = phase_analysis(dev, kernels)
+    phase_done("9")
     # launches on the main paths: the DLRM's (phase 3), serving's (3b, 3m,
-    # 3v, 3x), the audio encoder's (3h), training's (7 (a), 7x) and the
-    # mesh layer's steps (8 (a)), each counted from 0 around its run
+    # 3v, 3x), the audio encoder's (3h), training's (7 (a), 7x), the mesh
+    # layer's steps (8 (a)) and the sanitized fleet's (9 (c)), each counted
+    # from 0 around its run
     for counts in (lm_launches, moe_launches, vlm_launches, hubert_launches,
                    train_launches, xlstm_launches, xlstm_train_launches,
-                   mesh_launches):
+                   mesh_launches, analysis_launches):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
 

@@ -18,13 +18,22 @@ In ``serving`` the per-shard command set is live: full/rows/trainer
 saves, parity stripes, drain fences, image/export/reshard, ping, close.
 
 The port's own copy of ``repro.analysis.protocol.spec``: the port imports
-nothing of the JAX package, yet its writers speak the same wire protocol
-(``repro_torch.core.transport`` and ``repro_torch.launch.shard_server``
-take ``MAX_FRAME_BYTES`` and ``violation`` from here), so a port
-coordinator and a reference shard server interoperate in both directions.
+nothing of the JAX package, yet its writers speak the same wire protocol,
+so a port coordinator and a reference shard server interoperate in both
+directions.  Every consumer of the port's protocol derives from this
+module:
+
+* ``repro_torch.analysis.rules.protocol`` — AST conformance of the port's
+  frame construction and dispatch sites, and the ``wire-doc-drift`` rule
+  (the table between the ``<!-- wire-spec:begin -->`` markers of
+  ``docs/recovery.md`` is ``render_wire_table()`` verbatim);
+* ``repro_torch.core.transport`` / ``repro_torch.launch.shard_server`` —
+  runtime: ``MAX_FRAME_BYTES`` and ``violation``;
+* ``repro_torch.analysis.protocol.model`` / ``.fuzz`` — the model
+  checker's alphabet and the fuzzer's grammar.
+
 ``tests/test_torch_row_hash.py`` holds this copy equal to the reference
-frame for frame.  ``render_wire_table`` renders the reference's
-``docs/recovery.md`` table verbatim.  Stdlib only.
+frame for frame.  Stdlib only.
 """
 from __future__ import annotations
 
@@ -327,7 +336,9 @@ def validate_frame(msg: object, direction: str = C2W) -> bool:
 # Wire-table rendering: docs/recovery.md embeds this verbatim between
 # "<!-- wire-spec:begin -->" / "<!-- wire-spec:end -->" markers; the
 # wire-doc-drift rule fails analysis when they disagree.  Regenerate:
-#   PYTHONPATH=src python -m repro.analysis.protocol --write-table
+#   PYTHONPATH=src python -m repro_torch.analysis.protocol --write-table
+# The table's text names the reference's spec and CLI: the document is
+# the reference's, and both specs render it verbatim.
 
 WIRE_TABLE_BEGIN = "<!-- wire-spec:begin -->"
 WIRE_TABLE_END = "<!-- wire-spec:end -->"

@@ -5,7 +5,7 @@ port runs: the Griffin and Gemma-2 families, the dense Qwen2,
 Qwen2.5 and Phi-3 models, the Qwen MoE models, Qwen2-VL (M-RoPE, patch
 embeddings), HuBERT (an audio encoder) and xLSTM (mLSTM and sLSTM
 blocks): every language model of the reference.  The DLRM configurations
-live in ``configs.dlrm``.
+live in ``configs.dlrm``; ``get_dlrm_config(dataset)`` names them.
 """
 from __future__ import annotations
 
@@ -39,5 +39,10 @@ def get_config(arch: str) -> ModelConfig:
     return mod.CONFIG
 
 
-__all__ = ["get_config", "list_archs", "ModelConfig", "MoEConfig",
-           "InputShape", "INPUT_SHAPES"]
+def get_dlrm_config(dataset: str = "kaggle"):
+    from repro_torch.configs.dlrm import DLRM_KAGGLE, DLRM_TERABYTE
+    return {"kaggle": DLRM_KAGGLE, "terabyte": DLRM_TERABYTE}[dataset]
+
+
+__all__ = ["get_config", "get_dlrm_config", "list_archs", "ModelConfig",
+           "MoEConfig", "InputShape", "INPUT_SHAPES"]

@@ -4,9 +4,8 @@ the coordinator lease (``LEASE_PTR``, clock-skew slack, forced and expired
 takeovers), the hardened wire codec and socket framing, mux and shm
 handoff (``tests/test_wire_hardening.py``,
 ``tests/test_protocol_fuzz.py``), and the spec-derived fuzz of a live
-shard server, driven through the reference's ``repro.analysis.protocol.
-fuzz`` as a tool with its writer, server and framing swapped for the
-port's.
+shard server: the port's own fuzzer (``repro_torch.analysis.protocol.
+fuzz``, its tables on the CPU) against the reference's, seed for seed.
 
 Every case runs on each package's writer (numpy tables, so the port's
 ledger is on the CPU) and compares what comes back: images, byte counts,
@@ -32,6 +31,7 @@ from repro.core import checkpoint as r_checkpoint
 from repro.core import sharded_checkpoint as r_sc
 from repro.core import transport as r_transport
 from repro.launch import shard_server as r_server
+from repro_torch.analysis.protocol import fuzz as t_fuzz
 from repro_torch.analysis.protocol import spec as t_spec
 from repro_torch.core import checkpoint as t_checkpoint
 from repro_torch.core import sharded_checkpoint as t_sc
@@ -631,26 +631,17 @@ def test_shm_full_handoff_ships_a_name_not_the_rows():
 
 # -------------------------------------------------------------- fuzz ------
 @pytest.mark.parametrize("frames,seed", [(200, 0), (100, 20260808)])
-def test_protocol_fuzz_against_each_packages_server(tmp_path, monkeypatch,
-                                                    frames, seed):
-    """The reference's spec-derived fuzzer, as a tool, fires the same
-    hostile frames (derived from the reference's spec) at a live server
-    of each package, its fleet the package's own, holding a stamped,
-    parked fleet: the stamped directory stays byte-identical, the loaded
-    image equals the pre-attack one and the server still answers a
-    handshake (``run_fuzz`` asserts these), with the same replies."""
+def test_protocol_fuzz_against_each_packages_server(tmp_path, frames, seed):
+    """Each package's spec-derived fuzzer fires the same hostile frames
+    (derived from its own spec) at a live server of its own package,
+    holding a stamped, parked fleet of its own (the port's tables on the
+    CPU): the stamped directory stays byte-identical, the loaded image
+    equals the pre-attack one and the server still answers a handshake
+    (``run_fuzz`` asserts these), with the same stats and replies."""
     want = r_fuzz.run_fuzz(frames=frames, seed=seed,
                            root=str(tmp_path / "reference"))
-    port = PKGS["port"]
-    for name, value in (("EmbShardSpec", port.Spec),
-                        ("resolve_run_dir", port.resolve_run_dir),
-                        ("ShardedCheckpointWriter", port.Writer),
-                        ("SockChannel", port.transport.SockChannel),
-                        ("pack_msg", port.transport.pack_msg),
-                        ("shard_server", port.server)):
-        monkeypatch.setattr(r_fuzz, name, value)
-    got = r_fuzz.run_fuzz(frames=frames, seed=seed,
-                          root=str(tmp_path / "port"))
+    got = t_fuzz.run_fuzz(frames=frames, seed=seed,
+                          root=str(tmp_path / "port"), device="cpu")
     assert got == want
     assert got["ok"] and got["frames"] >= frames
     assert got["replies"].get("stale", 0) > 0

@@ -1,8 +1,10 @@
 """The port stands alone: no jax, nothing of ``repro`` (nor of the
 reference's harness, ``benchmarks``), and the repo's invariant rules hold
-over it.  The port is ``src/repro_torch/``, its harness
+over it, checked by the port's own linter (``python -m
+repro_torch.analysis``) and equal to the reference's report over it.  The port is ``src/repro_torch/``, its harness
 ``benchmarks_torch/`` and its examples ``examples/torch_*.py``."""
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -40,6 +42,19 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
               "repro_torch.core.sharded_checkpoint",
               "repro_torch.launch.shard_server",
               "repro_torch.analysis.protocol.spec",
+              "repro_torch.analysis", "repro_torch.analysis.__main__",
+              "repro_torch.analysis.core", "repro_torch.analysis.lockorder",
+              "repro_torch.analysis.rules",
+              "repro_torch.analysis.rules.durability",
+              "repro_torch.analysis.rules.epochs",
+              "repro_torch.analysis.rules.exceptions",
+              "repro_torch.analysis.rules.locks",
+              "repro_torch.analysis.rules.protocol",
+              "repro_torch.analysis.rules.timesource",
+              "repro_torch.analysis.protocol",
+              "repro_torch.analysis.protocol.__main__",
+              "repro_torch.analysis.protocol.model",
+              "repro_torch.analysis.protocol.fuzz",
               "repro_torch.kernels.row_hash",
               "repro_torch.models.transformer", "repro_torch.models.moe",
               "repro_torch.launch.serve",
@@ -95,16 +110,28 @@ def test_no_import_of_jax_or_repro_is_written_anywhere():
 
 
 def test_invariant_rules_hold_over_the_port():
-    """The stdlib-only linter of the reference, pointed at the port (its
-    rules match files by their path under --root, so the protocol rules
-    check the port's transport and shard server against the port's copy
-    of the spec, and the wire table of docs/recovery.md)."""
-    r = subprocess.run(
-        [sys.executable, "-m", "repro.analysis", "--root", str(PORT),
-         "--rule", "durability-ordering", "--rule", "exception-hygiene",
-         "--rule", "time-source", "--rule", "lock-discipline",
-         "--rule", "protocol-conformance", "--rule", "wire-doc-drift",
-         "--rule", "epoch-threading"],
-        env=_env(), cwd=ROOT, capture_output=True, text=True, timeout=300)
+    """The port's own linter over the port with all seven rules (its
+    default root; the protocol rules check the port's transport and shard
+    server against the port's spec, and the wire table of
+    docs/recovery.md), in a process of its own; its report equals the
+    reference's linter pointed at the port, finding for finding."""
+    runs = {}
+    for tool, args in (("repro_torch.analysis", []),
+                       ("repro.analysis", ["--root", str(PORT)])):
+        r = subprocess.run(
+            [sys.executable, "-m", tool, "--json"] + args, env=_env(),
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        assert r.returncode == 0, r.stdout + r.stderr
+        runs[tool] = json.loads(r.stdout)
+    port = runs["repro_torch.analysis"]
+    assert port["root"] == str(PORT)
+    assert port["counts"]["unsuppressed"] == 0
+    assert port["counts"]["suppressed"] == port["counts"]["total"] > 0
+    assert port == runs["repro.analysis"]
+    r = subprocess.run([sys.executable, "-m", "repro_torch.analysis"],
+                       env=_env(), cwd=ROOT, capture_output=True, text=True,
+                       timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert "0 unsuppressed" in r.stdout
+    assert r.stdout.splitlines()[-1] == (
+        f"{port['files_scanned']} file(s), {port['counts']['total']} "
+        f"finding(s), 0 unsuppressed")

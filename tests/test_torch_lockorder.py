@@ -1,12 +1,16 @@
-"""The reference's runtime lock-order sanitizer over the port's fleet.
+"""The port's runtime lock-order sanitizer over the port's fleet, held
+against the reference's.
 
-``repro.analysis.lockorder.LockOrderSanitizer(package="repro_torch")``
-is installed, as a tool, before each workload builds its fleet, so every
-lock, re-entrant lock and condition that the port's source constructs
-(``core/transport.py``, ``core/sharded_checkpoint.py``,
+Each workload runs once under the port's own
+``repro_torch.analysis.lockorder.LockOrderSanitizer()`` and once under the
+reference's ``repro.analysis.lockorder.LockOrderSanitizer(package=
+"repro_torch")``.  Each is installed before the workload builds its fleet,
+so every lock, re-entrant lock and condition that the port's source
+constructs (``core/transport.py``, ``core/sharded_checkpoint.py``,
 ``launch/shard_server.py``) is tracked, and is uninstalled in a
-``finally``.  Each workload must track constructions and leave an acyclic
-acquisition-order graph:
+``finally``.  Under each sanitizer a workload must track constructions and
+leave an acyclic acquisition-order graph, and both must track the same
+construction sites:
 
 * failover: the CPR manager's sharded fleet under injected failures,
   asynchronous saves (the emulator at test size), and a SIGKILLed pipe
@@ -18,11 +22,16 @@ acquisition-order graph:
   re-admitted.
 """
 import numpy as np
+# numpy imports numpy.random on first use, and its bit generators bind
+# threading.Lock then: imported under a sanitizer, every generator's lock
+# would go on being made by that sanitizer's factory after it uninstalls
+import numpy.random  # noqa: F401
 import pytest
 import torch
 
-from repro.analysis.lockorder import LockOrderSanitizer
+from repro.analysis import lockorder as r_lockorder
 from repro_torch import core as T
+from repro_torch.analysis import lockorder as t_lockorder
 from repro_torch.configs.dlrm import DLRM_KAGGLE, scaled
 from repro_torch.core.sharded_checkpoint import ShardedCheckpointWriter
 from repro_torch.data.synthetic import ClickLogDataset
@@ -134,13 +143,41 @@ WORKLOADS = {"failover_manager": _failover_manager,
              "socket": _socket}
 
 
+SANITIZERS = {
+    "port": lambda: t_lockorder.LockOrderSanitizer(),
+    "reference": lambda: r_lockorder.LockOrderSanitizer(
+        package="repro_torch")}
+_RUNS = {}
+
+
+def _run(tmp_path_factory, name, which):
+    """The workload under one sanitizer (once a session): the sanitizer
+    and the construction sites it tracked."""
+    if (name, which) not in _RUNS:
+        san = SANITIZERS[which]()
+        sites = set()
+        wrap = san.wrap
+
+        def recording(inner, site):
+            sites.add(site)
+            return wrap(inner, site)
+
+        san.wrap = recording
+        san.install()
+        try:
+            WORKLOADS[name](tmp_path_factory.mktemp(f"{name}-{which}"))
+        finally:
+            san.uninstall()
+        _RUNS[name, which] = san, sites
+    return _RUNS[name, which]
+
+
+@pytest.mark.parametrize("which", list(SANITIZERS))
 @pytest.mark.parametrize("name", list(WORKLOADS))
-def test_port_fleet_lock_order_is_acyclic(tmp_path, name):
-    san = LockOrderSanitizer(package="repro_torch")
-    san.install()
-    try:
-        WORKLOADS[name](tmp_path)
-    finally:
-        san.uninstall()
+def test_port_fleet_lock_order_is_acyclic(tmp_path_factory, name, which):
+    san, sites = _run(tmp_path_factory, name, which)
     assert san.tracked_constructions > 0
     san.assert_acyclic()
+    assert all(not s.startswith("/") and ".py:" in s for s in sites)
+    other = "reference" if which == "port" else "port"
+    assert sites == _run(tmp_path_factory, name, other)[1]
