@@ -125,7 +125,10 @@ freed first):
    phase 3v's (1, 64, 4096, 128) over (1, 8, 4096, 128) causal GQA
    (Qwen2-VL's), and HuBERT's bidirectional head dim 80 over 1,000 frames:
    phase 3h's (8, 16, 1000, 80) bf16 and 4h's (1, 16, 1000, 80) f32,
-   and phase 8's gemma2-2b, softcap 50, on its local layers (window
+   the hd-80 kernel's mask and edge paths ((2, 16, 129, 80) over (2, 8,
+   129, 80) causal, (2, 16, 256, 80) over (2, 8, 256, 80) with window 64;
+   each hd-80 row with its host path, the one-call ms less the kernel's
+   device ms), and phase 8's gemma2-2b, softcap 50, on its local layers (window
    4,096) and its global ones: a training microbatch (``MESH_MICROBATCH``
    = (4, 4096): (4, 8, 4096, 256) over (4, 4, 4096, 256)) and the prefill
    (2, 8, 4096, 256) over (2, 4, 4096, 256), bf16,
@@ -148,7 +151,8 @@ freed first):
    4096, 256) global with softcap 50, f32 (4, 8, 128, 64) over (4, 4,
    128, 64) with window 256 (the LM example's), HuBERT's bidirectional
    head dim 80 at 3h's (8, 16, 1000, 80) bf16 and 4h's (1, 16, 1000, 80)
-   f32, phase 8's gemma2-2b training microbatch (4, 8, 4096, 256) over
+   f32, 2b's two hd-80 mask cases (bf16, each hd-80 row with its host
+   path), phase 8's gemma2-2b training microbatch (4, 8, 4096, 256) over
    (4, 4, 4096, 256) bf16 with softcap 50, local (window 4,096) and
    global, and f32 (1, 10, 2176, 256)
    over (1, 1, 2176, 256) with window 2,048 (the training check 7 (b) at
@@ -521,6 +525,19 @@ FLASH_CASES = (
      False, 0, 0.0, (1e-2, 4e-3)),
     ("hubert-xlarge f32 (phase 4h)", (1, 16, 16, 1000, 80), torch.float32,
      False, 0, 0.0, (2e-5, 2e-5)),
+    # the hd-80 kernel's mask and edge paths: causal GQA 2:1 over a ragged
+    # 129 (a last query tile of one row), a window of 64 over 256
+    ("hd 80 causal GQA 2:1, ragged", (2, 16, 8, 129, 80), torch.bfloat16,
+     True, 0, 0.0, (1e-2, 4e-3)),
+    ("hd 80 window 64", (2, 16, 8, 256, 80), torch.bfloat16, True, 64, 0.0,
+     (1e-2, 4e-3)),
+    # a window under GQA 4:1 whose dK/dV runs (6 steps) hold a query tile
+    # that sees none of a warpgroup's keys (4 steps) after a live one; a
+    # softcap of 50 under GQA 2:1 (the kernels' softcap instantiations)
+    ("hd 80 window 64, GQA 4:1", (2, 16, 4, 768, 80), torch.bfloat16, True,
+     64, 0.0, (1e-2, 4e-3)),
+    ("hd 80 softcap 50, GQA 2:1, ragged", (2, 16, 8, 300, 80),
+     torch.bfloat16, True, 0, 50.0, (1e-2, 4e-3)),
     # phase 8 (a)'s gemma2-2b: a training microbatch and the prefill, on
     # its local layers (window 4,096) and its global ones, softcap 50
     *((f"gemma2-2b {kind}, {what} (phase 8)",
@@ -554,6 +571,14 @@ BWD_FLASH_CASES = (
      torch.bfloat16, False, 0, 0.0),
     ("hubert-xlarge f32 (phase 4h)", (1, 16, 16, 1000, 80), torch.float32,
      False, 0, 0.0),
+    # the hd-80 kernels' mask and edge paths, as in FLASH_CASES
+    ("hd 80 causal GQA 2:1, ragged", (2, 16, 8, 129, 80), torch.bfloat16,
+     True, 0, 0.0),
+    ("hd 80 window 64", (2, 16, 8, 256, 80), torch.bfloat16, True, 64, 0.0),
+    ("hd 80 window 64, GQA 4:1", (2, 16, 4, 768, 80), torch.bfloat16, True,
+     64, 0.0),
+    ("hd 80 softcap 50, GQA 2:1, ragged", (2, 16, 8, 300, 80),
+     torch.bfloat16, True, 0, 50.0),
     # phase 8 (a)'s gemma2-2b training microbatch, local and global layers
     *((f"gemma2-2b {kind}, training (phase 8)",
        (MESH_MICROBATCH[0], 8, 4, MESH_MICROBATCH[1], 256), torch.bfloat16,
@@ -736,6 +761,13 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_path(ms: float, own) -> str:
+    """What a one-call CUDA-event time adds to the kernel's own device time
+    (the host's work before the launch), as a note for a printed row."""
+    return (" host path (ms - device ms)="
+            + ("not measured" if own is None else f"{ms - own:.4f}"))
 
 
 def bound(nbytes: float, ops: float = 0.0, ops_per_s: float = F32_OPS_PER_S):
@@ -1991,6 +2023,7 @@ def phase_lm_kernels(dev, ops, ref):
                    bound_by=by, library_ms=library)
         own, _ = device_ms(kernel, "flash_fwd")
         ok = ratio <= 1.0
+        host = host_path(row["ms"], own) if hd == 80 else ""
         print(f"flash_attention {name}: q {tuple(q.shape)} k {tuple(k.shape)} "
               f"{str(dtype)[6:]} causal={causal} window={window} softcap={cap} "
               f"pairs={pairs} max_abs_err={err:.3e} limit |err| <= "
@@ -1999,7 +2032,7 @@ def phase_lm_kernels(dev, ops, ref):
               f"{'not measured' if own is None else f'{own:.4f}'} "
               f"plain_ms={row['plain_ms']:.4f} bound_ms={t_b:.5f} ({by}"
               f"{'' if dtype == torch.bfloat16 else ', 3xTF32'}){fma} "
-              f"library_ms={library}")
+              f"library_ms={library}{host}")
         if off is not None:
             print(f"  window one key tile ({KEY_TILE}) short would read: "
                   f"max_abs_err={off[0]:.3e}, {off[1]:.1f} times the limit")
@@ -2958,6 +2991,7 @@ def phase_lm_backward(dev, ops, ref):
         row = dict(max_abs_err=err, ms=time_ms(kernel),
                    plain_ms=time_ms(plain, reps=5, warmup=1), bound_ms=t_b,
                    bound_by=by, library_ms=library)
+        host = host_path(row["ms"], own) if hd == 80 else ""
         ok = ratio <= 1.0 and ratio_nolse <= 1.0
         print(f"flash_attention_backward {name}: q {tuple(q.shape)} k "
               f"{tuple(k.shape)} {str(dtype)[6:]} causal={causal} "
@@ -2973,7 +3007,7 @@ def phase_lm_backward(dev, ops, ref):
               f"{row['plain_ms']:.4f} bound_ms={t_b:.5f} ({by}"
               f"{'' if dtype == torch.bfloat16 else ', 3xTF32'}){fma} "
               f"library_ms={library} (the backward of "
-              f"F.scaled_dot_product_attention, band mask)")
+              f"F.scaled_dot_product_attention, band mask){host}")
         if off is not None:
             print(f"  window one key tile ({BWD_KEY_TILE}) short would read: "
                   f"max_abs_err={off[0]:.3e}, {off[1]:.1f} times the limit")
@@ -3776,7 +3810,8 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.1f} s into {out_dir}")
     for log in sorted(out_dir.glob("*.log")):
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            # and ptxas's notes where it serialized wgmma
+            if any(w in line for w in ("registers", "spill", "Performance")):
                 print(f"  {log.stem}: {line.strip()}")
     for name in ("flash_attention_bf16", "flash_attention_backward_bf16"):
         lib = out_dir / f"lib{name}.so"

@@ -18,15 +18,21 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared-memory tiles of 64 rows x HD bf16, stored as HD / kCols column
 // chunks of 64 rows x kSwizzle bytes, each row's 16-byte units swizzled by
-// the row (TMA's and wgmma's 128- or 64-byte swizzle).
+// the row (TMA's and wgmma's 128-, 64- or 32-byte swizzle).  Head dim 80
+// is five chunks of 16 columns in the 32-byte swizzle: each k-step of
+// Q.K^T reads one chunk, and P.V's B operand spans all five (N = 80).
 template <int HD>
 struct Tile {
-  static constexpr int kSwizzle = HD >= 64 ? 128 : 64;   // bytes of a chunk row
+  // bytes of a chunk row
+  static constexpr int kSwizzle = HD == 80 ? 32 : HD >= 64 ? 128 : 64;
   static constexpr int kCols = kSwizzle / 2;             // bf16 of a chunk row
   static constexpr int kChunkBytes = 64 * kSwizzle;
   static constexpr int kBytes = 64 * HD * 2;
-  static constexpr uint64_t kLayout = kSwizzle == 128 ? 1 : 2;  // wgmma B128 / B64
+  // wgmma's layout code: B128 1, B64 2, B32 3
+  static constexpr uint64_t kLayout =
+      kSwizzle == 128 ? 1 : kSwizzle == 64 ? 2 : 3;
   static constexpr uint32_t kSBO = 8 * kSwizzle;         // 8 rows of a chunk
+  static_assert(HD % kCols == 0, "whole chunks");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -109,11 +115,27 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// returns once at most N of this warpgroup's committed groups are pending
+// (groups complete in the order they were committed)
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 // the accumulator is read only after the wait
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// an A operand in registers stays live (and unwritten) until here: a
+// wgmma still in flight may read it up to its wait
+template <int R>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+  }
 }
 
 // D (64 x 64) = A (64 x 16, shared, K-major) * B (64 x 16, shared, K-major)
@@ -133,6 +155,33 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 128) = A (64 x 16, registers) * B (128 x 16, shared, K-major) + D
+// if scale_d, else + 0.
+__device__ __forceinline__ void wgmma_rs_n128_k(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // S (64 x 64) = A B^T over HD, both 64 x HD tiles (Tile<HD>) in shared
@@ -181,6 +230,27 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 80) += A (64 x 16, registers) * B (16 x 80, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -258,6 +328,8 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2],
     wgmma_rs_n32(o, a, db);
   } else if constexpr (HD == 64) {
     wgmma_rs_n64(o, a, db);
+  } else if constexpr (HD == 80) {
+    wgmma_rs_n80(o, a, db);
   } else if constexpr (HD == 128) {
     wgmma_rs_n128(o, a, db);
   } else {
@@ -278,6 +350,37 @@ __device__ __forceinline__ void wgmma_a_tile(float (&o)[HD / 2],
     wgmma_pv<HD>(o, a[j], desc(sb + j * 16 * T::kSwizzle, T::kChunkBytes,
                                T::kSBO, T::kLayout));
   }
+}
+
+// The A-operand fragments of a 64 x 80 bf16 block for 5 k-steps of 16,
+// read from device memory (rows `row0`.. of `src`, row stride `rs`
+// elements, rows at or past `limit` read 0): thread t holds rows
+// 16 (t / 32) + t % 32 / 4 (+ 8) and columns 16 k + 2 (t % 4) (+ 1, + 8),
+// the layout of a 64 x 16 accumulator.
+__device__ __forceinline__ void load_frags80(uint32_t (&a)[5][4],
+                                             const __nv_bfloat16* src,
+                                             long long rs, int row0,
+                                             int limit, int t) {
+  const int r = row0 + 16 * (t / 32) + t % 32 / 4;
+  const int c = 2 * (t % 4);
+  const uint32_t* lo = reinterpret_cast<const uint32_t*>(src + r * rs + c);
+  const uint32_t* hi =
+      reinterpret_cast<const uint32_t*>(src + (r + 8) * rs + c);
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    a[k][0] = r < limit ? __ldg(lo + 8 * k) : 0u;
+    a[k][1] = r + 8 < limit ? __ldg(hi + 8 * k) : 0u;
+    a[k][2] = r < limit ? __ldg(lo + 8 * k + 4) : 0u;
+    a[k][3] = r + 8 < limit ? __ldg(hi + 8 * k + 4) : 0u;
+  }
+}
+
+// 2^x on the MUFU, one instruction: exp2f adds a fix-up for results
+// below 2^-126, which flush to 0 here (far below a bf16 rounding of p)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -316,32 +419,48 @@ EncodeTiled encoder() {
 // there, but the tensor-map encoder is a driver call and needs one bound
 // already: on a thread that has made no CUDA call yet (autograd's device
 // thread before its first operation) it fails.  Two host calls, no sync.
-inline cudaError_t bind_device(const void* ptr) {
+inline cudaError_t bind_device(const void* ptr, int* dev = nullptr) {
   cudaPointerAttributes a;
   const cudaError_t err = cudaPointerGetAttributes(&a, ptr);
   if (err != cudaSuccess) return err;
+  if (dev != nullptr) *dev = a.device;
   return cudaSetDevice(a.device);
 }
 
-// A (W, S, H, B) map of a bf16 (B, H, S, W) tensor with element strides
-// st = (batch, head, seq), boxes of (Tile<HD>::kCols, 64, 1, 1) in its
-// swizzle; rows past S read 0, and so do columns past the head dim W when
-// it is narrower than the tile (W = 80 in a 128-wide tile: the second box
-// reads columns 64..79 and zeros).
-template <int HD, int W = HD>
+// cudaFuncSetAttribute(kern, MaxDynamicSharedMemorySize, bytes) once per
+// device for each caller's `done` (one per kernel instantiation): a host
+// call that need not run at every launch.
+constexpr int kMaxDevices = 64;
+template <typename Kernel>
+cudaError_t smem_once(int (&done)[kMaxDevices], int dev, Kernel kern,
+                      int bytes) {
+  if (dev >= 0 && dev < kMaxDevices &&
+      __atomic_load_n(&done[dev], __ATOMIC_ACQUIRE))
+    return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev >= 0 && dev < kMaxDevices)
+    __atomic_store_n(&done[dev], 1, __ATOMIC_RELEASE);
+  return err;
+}
+
+// A (HD, S, H, B) map of a bf16 (B, H, S, HD) tensor with element strides
+// st = (batch, head, seq), boxes of (Tile<HD>::kCols, rows, 1, 1) in its
+// swizzle; rows past S read 0.
+template <int HD>
 bool make_map(CUtensorMap* map, const void* ptr, long long S, long long H,
-              long long B, const long long* st) {
-  static_assert(W <= HD && W % 8 == 0, "head dim within the tile");
+              long long B, const long long* st, int rows = 64) {
   using T = Tile<HD>;
-  const cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)S, (cuuint64_t)H,
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)S, (cuuint64_t)H,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
                                  (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)T::kCols, 64, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)T::kCols, (cuuint32_t)rows, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle = T::kSwizzle == 128
-                                         ? CU_TENSOR_MAP_SWIZZLE_128B
-                                         : CU_TENSOR_MAP_SWIZZLE_64B;
+  const CUtensorMapSwizzle swizzle =
+      T::kSwizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : T::kSwizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                          : CU_TENSOR_MAP_SWIZZLE_32B;
   return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                    const_cast<void*>(ptr), dims, strides, box, unit,
                    CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,

@@ -31,8 +31,7 @@ import torch
 from repro_torch.kernels import (LAUNCHES, _build, check_launch, launch_on,
                                  require, stream_of)
 
-# head dim 80 (HuBERT) runs in the bf16 kernels' 128-wide tiles, the
-# columns past 80 read as zeros
+# head dim 80 (HuBERT) has bf16 kernels of its own, in exact 80-wide tiles
 HEAD_DIMS = (32, 64, 80, 128, 256)
 # (q, k, v, o, lse, strides, B, Hq, Hkv, Sq, Skv, hd, scale, causal,
 #  window, softcap, stream) -> CUDA error code; by dtype: (library,
@@ -52,38 +51,57 @@ _BWD_KERNELS = {
                      "flash_attention_bf16_bwd")}
 _BWD_ARGS = (*(_build.P,) * 11, *(_build.I,) * 6, _build.F, _build.I,
              _build.I, _build.F, _build.P)
+_STRIDES12 = _build.LL * 12
+_STRIDES24 = _build.LL * 24
+# the loaded ctypes functions by dtype: resolved once per process, so a
+# call takes no lock
+_FWD_FNS: dict = {}
+_BWD_FNS: dict = {}
 
 
 def _aligned(t: torch.Tensor) -> bool:
     """Contiguous head dim; pointer and (batch, head, seq) strides in
     whole 16-byte units, as the f32 kernel's vector loads and the bf16
     kernel's TMA copies need."""
-    size = t.element_size()
-    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(s * size % 16 == 0 for s in t.stride()[:3]))
+    b, h, s, d = t.stride()
+    unit = 16 // t.element_size()          # elements in 16 bytes
+    return (d == 1 and t.data_ptr() % 16 == 0
+            and (b % unit | h % unit | s % unit) == 0)
 
 
 def _check(q, k, v, window, softcap):
-    """The kernels' shared contract on q, k, v and the mask options."""
+    """The kernels' shared contract on q, k, v and the mask options (each
+    message is formatted only when its check fails)."""
     require(q.is_cuda and k.device == q.device and v.device == q.device,
             "flash_attention launches a CUDA kernel: q, k and v must be on "
             "one CUDA device")
-    require(q.dtype in (torch.float32, torch.bfloat16)
-            and k.dtype == q.dtype and v.dtype == q.dtype,
-            f"q, k, v must all be float32 or all bfloat16, got {q.dtype}, "
-            f"{k.dtype}, {v.dtype}")
+    if not (q.dtype in (torch.float32, torch.bfloat16)
+            and k.dtype == q.dtype and v.dtype == q.dtype):
+        raise ValueError(f"q, k, v must all be float32 or all bfloat16, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     require(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape,
             "q must be (B, Hq, Sq, hd) and k, v (B, Hkv, Skv, hd)")
     B, Hq, Sq, hd = q.shape
     _, Hkv, Skv, _ = k.shape
     require(k.shape[0] == B and k.shape[3] == hd,
             "q, k and v must share batch and head dim")
-    require(hd in HEAD_DIMS, f"head dim {hd} not in {HEAD_DIMS}")
-    require(Hkv > 0 and Hq % Hkv == 0,
-            f"Hq={Hq} must be a multiple of Hkv={Hkv}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    if not (Hkv > 0 and Hq % Hkv == 0):
+        raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}")
     require(Skv >= Sq, "queries are right-aligned to the KV tail: Skv must "
             "be >= Sq")
     require(window >= 0 and softcap >= 0, "window and softcap must be >= 0")
+
+
+def _forward_fn(dtype):
+    """The dtype's forward launcher (built and loaded at first use)."""
+    fn = _FWD_FNS.get(dtype)
+    if fn is None:
+        name, fname = _KERNELS[dtype]
+        fn = getattr(_build.load(name, {fname: (_build.I, _ARGS)}), fname)
+        _FWD_FNS[dtype] = fn
+    return fn
 
 
 def _forward(q, k, v, out, lse, causal, window, softcap) -> int:
@@ -93,23 +111,28 @@ def _forward(q, k, v, out, lse, causal, window, softcap) -> int:
     B, Hq, Sq, hd = q.shape
     _, Hkv, Skv, _ = k.shape
     o = q if out is None else out          # no output: its strides unread
-    strides = (_build.LL * 12)(*[s for t in (q, k, v, o)
-                                 for s in t.stride()[:3]])
-    name, fn = _KERNELS[q.dtype]
-    fn = getattr(_build.load(name, {fn: (_build.I, _ARGS)}), fn)
-    return launch_on(q.get_device(), fn, q.data_ptr(), k.data_ptr(),
-                     v.data_ptr(), None if out is None else out.data_ptr(),
+    strides = _STRIDES12(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                         *o.stride()[:3])
+    return launch_on(q.get_device(), _forward_fn(q.dtype), q.data_ptr(),
+                     k.data_ptr(), v.data_ptr(),
+                     None if out is None else out.data_ptr(),
                      None if lse is None else lse.data_ptr(), strides, B, Hq,
                      Hkv, Sq, Skv, hd, 1.0 / math.sqrt(hd), int(causal),
                      int(window), float(softcap), stream_of(q))
 
 
 def _backward_fns(dtype):
-    """The dtype's backward launcher and its scratch-size function."""
-    name, fn = _BWD_KERNELS[dtype]
-    lib = _build.load(name, {fn: (_build.I, _BWD_ARGS),
-                             fn + "_scratch": (_build.LL, (_build.I,) * 8)})
-    return getattr(lib, fn), getattr(lib, fn + "_scratch")
+    """The dtype's backward launcher and its scratch-size function (built
+    and loaded at first use)."""
+    fns = _BWD_FNS.get(dtype)
+    if fns is None:
+        name, fn = _BWD_KERNELS[dtype]
+        lib = _build.load(name, {fn: (_build.I, _BWD_ARGS),
+                                 fn + "_scratch": (_build.LL,
+                                                   (_build.I,) * 8)})
+        fns = _BWD_FNS[dtype] = (getattr(lib, fn),
+                                 getattr(lib, fn + "_scratch"))
+    return fns
 
 
 def _rows(q: torch.Tensor) -> torch.Tensor:
@@ -172,8 +195,8 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    strides = (_build.LL * 24)(*[s for t in (q, k, v, out, dout, dq, dk, dv)
-                                 for s in t.stride()[:3]])
+    strides = _STRIDES24(*[s for t in (q, k, v, out, dout, dq, dk, dv)
+                           for s in t.stride()[:3]])
     fn, scratch_size = _backward_fns(q.dtype)
     n = scratch_size(B, Hq, Hkv, Sq, Skv, hd, int(causal), int(window))
     scratch = torch.empty(n + (0 if lse is not None else B * Hq * Sq),

@@ -36,20 +36,16 @@ def embedding_bag(table, idx):
 
 class _FlashAttention(torch.autograd.Function):
     """Attention over the kernel layout (B, H, S, hd); saves q, k, v, the
-    output and, when an input needs a gradient, the forward's per-row
-    log-sum-exp, which the backward then does not recompute (serving
-    does not pay for it)."""
+    output and the forward's per-row log-sum-exp, which the backward then
+    does not recompute.  ``flash_attention`` applies it only when an input
+    needs a gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap):
         ctx.mask = (causal, window, softcap)
         fwd = _fa.flash_attention if on_card(q, k, v) else ref.flash_attention
-        if any(ctx.needs_input_grad[:3]):
-            out, lse = fwd(q, k, v, causal=causal, window=window,
-                           softcap=softcap, return_lse=True)
-        else:
-            out, lse = fwd(q, k, v, causal=causal, window=window,
-                           softcap=softcap), None
+        out, lse = fwd(q, k, v, causal=causal, window=window,
+                       softcap=softcap, return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         return out
 
@@ -73,8 +69,15 @@ def flash_attention(q, k, v, causal=True, window=0, softcap=0.0):
     (B, Sq, Hq, hd), differentiable in q, k and v.  The kernels take the
     (B, H, S, hd) views in place."""
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    return _FlashAttention.apply(qt, kt, vt, causal, window,
-                                 softcap).transpose(1, 2)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(qt, kt, vt, causal, window,
+                                     softcap).transpose(1, 2)
+    # no gradient wanted (serving): the forward alone, without the
+    # autograd Function's host work
+    fwd = _fa.flash_attention if on_card(qt, kt, vt) else ref.flash_attention
+    return fwd(qt, kt, vt, causal=causal, window=window,
+               softcap=softcap).transpose(1, 2)
 
 
 class _RGLRUScan(torch.autograd.Function):

@@ -1,18 +1,24 @@
 """Where the attention kernels spend their time on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_attention_backward \\
-        [--dtype bf16,f32] [--forward]
+        [--dtype bf16,f32] [--forward] [--only SUBSTRING]
 
 At the backward shapes of ``chip_smoke.py`` phase 2c (bf16: the training
-path's, the window case's, gemma2's with softcap; f32: the LM example's
-and the training check 7 (b)'s at full width), with the forward's
-log-sum-exp handed over as ``ops`` hands it, prints for each: the device
-time per call by kernel (``torch.profiler``, 10 calls), the CUDA-event
-time per call over 50 calls back to back and of one call alone (median of
-25), and the host time to enqueue a call.  ``--forward`` adds the f32
-forward at phase 4b's prefill shape, timed the same way.  First the
-card's name and power limit and the attention libraries' registers and
-spills (``ptxas -v``, from the build's log).  Needs a GPU.
+path's, the window case's, gemma2's with softcap, HuBERT X-Large's
+bidirectional head dim 80; f32: the LM example's and the training check
+7 (b)'s at full width), with the forward's log-sum-exp handed over as
+``ops`` hands it, prints for each: the device time per call by kernel
+(``torch.profiler``, 10 calls), the CUDA-event time per call over 50
+calls back to back and of one call alone (median of 25), the host time
+to enqueue a call, their difference ``host_path_ms`` (one call's ms minus
+its device ms) and, without a softcap, the one-call ms of
+``F.scaled_dot_product_attention``'s backward on the same inputs (the
+yardstick, never the port's path).  ``--forward`` adds the forwards (f32
+at phase 4b's prefill shape, bf16 at HuBERT's), timed the same way beside
+SDPA's forward.  ``--only`` keeps the cases whose name holds the
+substring.  First the card's name and power limit and the attention
+libraries' registers and spills (``ptxas -v``, from the build's log).
+Needs a GPU.
 
 Run by path against another tree's package (``PYTHONPATH=<tree>/src
 python src/repro_torch/launch/profile_attention_backward.py``), it times
@@ -28,29 +34,35 @@ import subprocess
 import time
 
 import torch
+import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
 
-# by dtype, name: (B, Hq, Hkv, S, hd), window, softcap; causal, queries
+# by dtype, name: (B, Hq, Hkv, S, hd), causal, window, softcap; queries
 # over all keys
+HUBERT = "hubert-xlarge hd 80 (8, 16, 1000, 80)"
 CASES = {
     "bf16": {
-        "training (8, 10, 512, 256)": ((8, 10, 1, 512, 256), 2048, 0.0),
-        "window bites (2, 10, 4096, 256)": ((2, 10, 1, 4096, 256), 2048,
+        "training (8, 10, 512, 256)": ((8, 10, 1, 512, 256), True, 2048, 0.0),
+        "window bites (2, 10, 4096, 256)": ((2, 10, 1, 4096, 256), True, 2048,
                                             0.0),
-        "gemma2 global softcap (1, 8, 4096, 256)": ((1, 8, 4, 4096, 256), 0,
-                                                    50.0)},
+        "gemma2 global softcap (1, 8, 4096, 256)": ((1, 8, 4, 4096, 256),
+                                                    True, 0, 50.0),
+        HUBERT: ((8, 16, 16, 1000, 80), False, 0, 0.0)},
     "f32": {
-        "lm-100m example (4, 8, 4, 128, 64)": ((4, 8, 4, 128, 64), 256, 0.0),
+        "lm-100m example (4, 8, 4, 128, 64)": ((4, 8, 4, 128, 64), True, 256,
+                                               0.0),
         "training check 7 (b) (1, 10, 1, 2176, 256)": ((1, 10, 1, 2176, 256),
-                                                       2048, 0.0)}}
+                                                       True, 2048, 0.0)}}
 FORWARD_CASES = {
-    "f32 prefill phase 4b (2, 10, 1, 2176, 256)": ((2, 10, 1, 2176, 256),
-                                                   2048, 0.0)}
+    "f32 prefill phase 4b (2, 10, 1, 2176, 256)": (
+        (2, 10, 1, 2176, 256), True, 2048, 0.0, torch.float32),
+    HUBERT: ((8, 16, 16, 1000, 80), False, 0, 0.0, torch.bfloat16)}
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 LIBS = ("flash_attention", "flash_attention_backward",
         "flash_attention_backward_bf16")
@@ -59,7 +71,7 @@ LIBS = ("flash_attention", "flash_attention_backward",
 def _kernel_name(key: str) -> str:
     """``flash_bwd_dq<256>`` from the profiler's demangled signature or
     ptxas's mangled name; other keys as they are."""
-    m = (re.search(r"::(\w+<\d+>)\(", key)
+    m = (re.search(r"::(\w+<[\w, ]+>)\(", key)
          or re.search(r"\d+(flash_\w+?)ILi(\d+)E", key))
     if m is None:
         return key
@@ -77,9 +89,10 @@ def _events_ms(fn, calls: int) -> float:
     return start.elapsed_time(end) / calls
 
 
-def time_call(dev, call, reps: int = 10) -> dict:
+def time_call(dev, call, reps: int = 10, library=None) -> dict:
     """Device ms by kernel (profiler), CUDA-event ms back to back and of
-    one call alone, host enqueue ms of ``call``."""
+    one call alone, host enqueue ms of ``call``; with ``library``, that
+    call's one-call ms too."""
     for _ in range(3):
         call()
     torch.cuda.synchronize(dev)
@@ -100,11 +113,19 @@ def time_call(dev, call, reps: int = 10) -> dict:
     torch.cuda.synchronize(dev)
     back_to_back = _events_ms(call, 50)
     alone = statistics.median(_events_ms(call, 1) for _ in range(25))
-    return {"device_ms_by_kernel": by_kernel,
-            "device_ms": round(sum(by_kernel.values()), 4),
-            "back_to_back_ms": round(back_to_back, 4),
-            "one_call_ms": round(alone, 4),
-            "host_enqueue_ms": round(host_ms, 4)}
+    device = sum(by_kernel.values())
+    out = {"device_ms_by_kernel": by_kernel,
+           "device_ms": round(device, 4),
+           "back_to_back_ms": round(back_to_back, 4),
+           "one_call_ms": round(alone, 4),
+           "host_enqueue_ms": round(host_ms, 4),
+           "host_path_ms": round(alone - device, 4)}
+    if library is not None:
+        for _ in range(3):
+            library()
+        out["library_one_call_ms"] = round(statistics.median(
+            _events_ms(library, 1) for _ in range(25)), 4)
+    return out
 
 
 def _inputs(dev, shape, dtype):
@@ -114,19 +135,47 @@ def _inputs(dev, shape, dtype):
             for h in (Hq, Hkv, Hkv, Hq)]
 
 
-def profile_case(dev, shape, window, softcap, dtype=torch.bfloat16) -> dict:
+def _band(S, causal, window, dev):
+    """SDPA's mask of the band, or None where every key is seen."""
+    if not causal and not window:
+        return None
+    i = torch.arange(S, device=dev)
+    return ((i[None, :] <= i[:, None]) | (not causal)) & (
+        i[:, None] - i[None, :] < (window or S + 1))
+
+
+def profile_case(dev, shape, causal, window, softcap,
+                 dtype=torch.bfloat16) -> dict:
     q, k, v, do = _inputs(dev, shape, dtype)
-    out, lse = fa.flash_attention(q, k, v, True, window, softcap,
+    out, lse = fa.flash_attention(q, k, v, causal, window, softcap,
                                   return_lse=True)
+    library = None
+    if not softcap:
+        band = _band(shape[3], causal, window, dev)
+        lq, lk, lv = (x.detach().requires_grad_(True) for x in (q, k, v))
+        lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=band,
+                                            enable_gqa=True)
+
+        def library():
+            torch.autograd.grad(lo, (lq, lk, lv), do, retain_graph=True)
     return time_call(dev, lambda: fa.flash_attention_backward(
-        q, k, v, out, do, True, window, softcap, lse=lse))
+        q, k, v, out, do, causal, window, softcap, lse=lse), library=library)
 
 
-def profile_forward(dev, shape, window, softcap,
+def profile_forward(dev, shape, causal, window, softcap,
                     dtype=torch.float32) -> dict:
-    q, k, v, _ = _inputs(dev, shape, dtype)
-    return time_call(dev, lambda: fa.flash_attention(q, k, v, True, window,
-                                                     softcap))
+    """The forward through ``ops`` (the layer layout, as the models call
+    it), beside SDPA's forward on the same inputs."""
+    # dense in the layer layout (B, S, H, hd), as the models hold them
+    ql, kl, vl = (x.transpose(1, 2).contiguous()
+                  for x in _inputs(dev, shape, dtype)[:3])
+    q, k, v = (x.transpose(1, 2) for x in (ql, kl, vl))
+    band = _band(shape[3], causal, window, dev)
+    return time_call(
+        dev, lambda: ops.flash_attention(ql, kl, vl, causal=causal,
+                                         window=window, softcap=softcap),
+        library=None if softcap else lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=band, enable_gqa=True))
 
 
 def main(argv=None) -> None:
@@ -134,7 +183,10 @@ def main(argv=None) -> None:
     ap.add_argument("--dtype", default="bf16,f32",
                     help="comma-separated: bf16, f32")
     ap.add_argument("--forward", action="store_true",
-                    help="also the f32 forward at phase 4b's shape")
+                    help="also the forwards (f32 at phase 4b's shape, bf16 "
+                         "at HuBERT's)")
+    ap.add_argument("--only", default="",
+                    help="only the cases whose name holds this substring")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -152,13 +204,17 @@ def main(argv=None) -> None:
             elif "registers" in line or "spill" in line:
                 print(f"{lib}: {name}: {line.strip()}")
     for key in args.dtype.split(","):
-        for case, (shape, window, softcap) in CASES[key].items():
-            print(f"backward {key} {case}", json.dumps(profile_case(
-                dev, shape, window, softcap, DTYPES[key])), flush=True)
+        for case, (shape, causal, window, softcap) in CASES[key].items():
+            if args.only in case:
+                print(f"backward {key} {case}", json.dumps(profile_case(
+                    dev, shape, causal, window, softcap, DTYPES[key])),
+                    flush=True)
     if args.forward:
-        for case, (shape, window, softcap) in FORWARD_CASES.items():
-            print(f"forward {case}", json.dumps(profile_forward(
-                dev, shape, window, softcap)), flush=True)
+        for case, (shape, causal, window, softcap, dtype) in \
+                FORWARD_CASES.items():
+            if args.only in case:
+                print(f"forward {case}", json.dumps(profile_forward(
+                    dev, shape, causal, window, softcap, dtype)), flush=True)
 
 
 if __name__ == "__main__":

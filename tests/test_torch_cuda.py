@@ -1073,9 +1073,10 @@ def test_apply_moe_bf16_is_deterministic_and_never_syncs(card):
 
 
 # ----------------------------------------- HuBERT and Qwen2-VL (head dim 80) --
-# head dim 80: the bf16 kernels' 128-wide tiles with columns 80..127 read
-# as zeros, the f32 kernels' five 16-column steps (dQ's halves of 40);
-# bidirectional and causal, ragged Sq = Skv, GQA 2:1, HuBERT's 1,000 frames
+# head dim 80: the bf16 kernels' exact 80-wide tiles (the backward's dK/dV
+# a 128-key block a CTA, 64 keys a warpgroup), the f32 kernels' five
+# 16-column steps (dQ's halves of 40); bidirectional and causal, ragged
+# Sq = Skv, GQA 2:1 and 4:1, HuBERT's 1,000 frames
 FLASH_HD80_CASES = [
     # B, Hq, Hkv, Sq, Skv, hd, causal, window, softcap
     (2, 16, 16, 200, 200, 80, False, 0, 0.0),      # bidirectional, ragged
@@ -1083,6 +1084,15 @@ FLASH_HD80_CASES = [
     (1, 4, 2, 64, 64, 80, False, 0, 0.0),          # bidirectional GQA, a tile
     (1, 2, 1, 100, 230, 80, True, 64, 0.0),        # window, Skv > Sq
     (1, 16, 16, 1000, 1000, 80, False, 0, 0.0),    # HuBERT's 20 s of frames
+    (1, 8, 2, 300, 300, 80, False, 0, 0.0),        # GQA 4:1, ragged
+    # each 128-key block's 32 steps in 16 runs: the runs' sum launches
+    (1, 2, 1, 1024, 1024, 80, False, 0, 0.0),
+    # window 256 under GQA 4:1 in runs of 6 steps: a run holds the last
+    # query tile that sees warpgroup 0's keys and the 4 dead steps after it
+    (1, 8, 2, 2048, 2048, 80, True, 256, 0.0),
+    # softcaps: causal GQA 2:1 ragged, and a window under GQA 4:1
+    (1, 4, 2, 129, 129, 80, True, 0, 50.0),
+    (1, 8, 2, 300, 300, 80, True, 64, 30.0),
 ]
 
 
@@ -1101,8 +1111,10 @@ def test_flash_attention_hd80(card, B, Hq, Hkv, Sq, Skv, hd, causal, window,
     g = torch.Generator(device=card).manual_seed(5)
     q, k, v = (torch.randn((B, S, H, hd), generator=g, device=card).to(dtype)
                for S, H in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv)))
-    a = ops.flash_attention(q, k, v, causal=causal, window=window)
-    b = ops.flash_attention(q, k, v, causal=causal, window=window)
+    a = ops.flash_attention(q, k, v, causal=causal, window=window,
+                            softcap=softcap)
+    b = ops.flash_attention(q, k, v, causal=causal, window=window,
+                            softcap=softcap)
     assert torch.equal(a, b)
 
 
